@@ -84,3 +84,72 @@ class TestHardDemod:
             dqpsk.demodulate_ri(re, im, est_cfo=False)))
         fast = np.asarray(dqpsk.demodulate_hard_ri(re, im))
         np.testing.assert_array_equal(fast[:, 2:], slow[:, 2:])
+
+
+def _signal(rng, C, n_sym, snr_db=None, delay=0):
+    bits = rng.integers(0, 2, size=(C, 2 * n_sym)).astype(np.int8)
+    iq = dqpsk.modulate(bits, sps=2)
+    if snr_db is not None:
+        p = np.mean(np.abs(iq) ** 2)
+        sigma = np.sqrt(p / (2 * 10 ** (snr_db / 10.0)))
+        iq = iq + sigma * (rng.standard_normal(iq.shape)
+                           + 1j * rng.standard_normal(iq.shape))
+    iq = np.pad(iq, ((0, 0), (delay, 0)))[:, :iq.shape[1]]
+    return (jnp.asarray(np.real(iq), jnp.float32),
+            jnp.asarray(np.imag(iq), jnp.float32), bits)
+
+
+class TestHardDemodCases:
+    """demodulate_hard_ri (the XLA demod every device path runs) against
+    the angle + slicer path, over the cases the fused demod kernel was
+    once pinned on."""
+
+    def _both(self, re, im):
+        fast = np.asarray(dqpsk.demodulate_hard_ri(re, im))
+        slow = np.asarray(dqpsk.float_to_bits(
+            dqpsk.demodulate_ri(re, im, est_cfo=False)))
+        return fast[:, 2:], slow[:, 2:]
+
+    def test_clean(self):
+        re, im, bits = _signal(np.random.default_rng(11), C=5, n_sym=700)
+        fast, slow = self._both(re, im)
+        np.testing.assert_array_equal(fast, slow)
+        # and the decisions are the transmitted bits past the filter edge
+        np.testing.assert_array_equal(fast[:, 30:-32], bits[:, 32:-32])
+
+    def test_noisy_8db(self):
+        """At 8 dB both see the same noise; decisions differ only where
+        a symbol sits on a slicing boundary."""
+        re, im, _ = _signal(np.random.default_rng(12), C=3, n_sym=600,
+                            snr_db=8.0)
+        fast, slow = self._both(re, im)
+        assert np.mean(fast != slow) < 1e-3
+
+    def test_timing_phase_offset(self):
+        """A one-sample delay moves the optimum sampling instant to the
+        other phase; both demods must track it identically."""
+        re, im, _ = _signal(np.random.default_rng(13), C=4, n_sym=500,
+                            delay=1)
+        fast, slow = self._both(re, im)
+        np.testing.assert_array_equal(fast, slow)
+
+    def test_ragged_length(self):
+        """Odd carrier counts and lengths off every block size."""
+        re, im, _ = _signal(np.random.default_rng(14), C=7, n_sym=301)
+        fast, slow = self._both(re, im)
+        assert fast.shape == (7, 600)
+        np.testing.assert_array_equal(fast, slow)
+
+    def test_slot_framing(self):
+        """locked_step_ri(fast=True) frames slots exactly as slicing the
+        demodulated stream at phase_bit and reshaping into slots."""
+        from tetra_tpu.lmac import steady
+        n_slots, phase_bit = 3, 64
+        re, im, _ = _signal(np.random.default_rng(16), C=5,
+                            n_sym=(phase_bit + n_slots * 510) // 2 + 40)
+        stream = np.asarray(dqpsk.demodulate_hard_ri(re, im))
+        out = steady.locked_step_ri(re, im, jnp.zeros(5, jnp.uint32),
+                                    phase_bit=phase_bit, n_slots=n_slots,
+                                    decoders=("fused",))
+        np.testing.assert_array_equal(np.asarray(out["bits"]),
+                                      stream[:, phase_bit:])

@@ -2,7 +2,7 @@
 
 The reference works at low SNR by design — its Costas + Mueller&Müller
 feedback demodulator is its only mode (reference
-src/demod/cqpsk.py:253-270). The TPU rebuild's scale path gets there
+src/demod/cqpsk.py:253-270). This rebuild's scale path gets there
 differently: dqpsk.demodulate_soft_ri emits int8 per-bit reliabilities,
 the fused chunk program gathers the soft window byte-granularly and
 runs the soft Viterbi (lmac.fused decode_slots_fused soft_input), and

@@ -11,7 +11,7 @@ import jax.numpy as jnp
 from tetra_tpu import tx, testpdu, constants as C
 from tetra_tpu.ops import rcpc, viterbi
 from tetra_tpu.ops.scramble import scramb_get_init
-from tetra_tpu.ops.viterbi_pallas import decode_segmented_pallas
+from tetra_tpu.ops.viterbi_pallas import decode_pallas
 from tetra_tpu.lmac import steady, fused, pipeline
 
 INIT = scramb_get_init(262, 42, 1)
@@ -67,9 +67,10 @@ class TestSegmentedViterbi:
         got = np.asarray(fused.decode_segmented(jnp.asarray(soft),
                                                 jnp.asarray(rmask)))
         np.testing.assert_array_equal(got, expect)
-        got_k = np.asarray(decode_segmented_pallas(
-            jnp.asarray(soft), jnp.asarray(rmask), fused.N_SYM,
-            fused.BOUNDARIES, tile_b=8, interpret=True))
+        got_k = np.asarray(decode_pallas(
+            jnp.asarray(soft), fused.N_SYM, C.CONV_GENERATORS_CCH,
+            jnp.asarray(rmask), fused.BOUNDARIES, block_rows=8,
+            interpret=True))
         np.testing.assert_array_equal(got_k, expect)
 
     def test_all_kind_layouts_random_soft(self):
@@ -77,67 +78,6 @@ class TestSegmentedViterbi:
         # SYNC 80+144+64pad, SCH/F 288, NDB 144+144, and full-split
         self._check(rng, [(80, 144, 64), (288,), (144, 144),
                           (80, 64, 80, 64), (288,), (80, 144, 64)])
-
-    def test_radix4_radix16_match_radix2(self):
-        """Radix-4/-16 fused-step ACS/traceback == radix-2, incl. ties
-        (the quantised +-127/0 alphabet makes tied path metrics common,
-        so this exercises the composed tie-break ordering)."""
-        rng = np.random.default_rng(9)
-        soft = jnp.asarray((rng.integers(-1, 2, size=(16, fused.N_MOTHER))
-                            * 127).astype(np.float32))
-        rmask = jnp.asarray(rng.integers(0, 2, size=(16, 3))
-                            .astype(np.float32))
-        r2 = np.asarray(decode_segmented_pallas(
-            soft, rmask, fused.N_SYM, fused.BOUNDARIES, tile_b=8,
-            interpret=True, radix=2))
-        for radix in (4, 16):
-            rk = np.asarray(decode_segmented_pallas(
-                soft, rmask, fused.N_SYM, fused.BOUNDARIES, tile_b=8,
-                interpret=True, radix=radix))
-            np.testing.assert_array_equal(rk, r2)
-
-    def test_packed_tiebreak_matches_unpacked(self):
-        """bf16/int8 inputs route radix-16 through the packed tie-break
-        (rank in the metric's low 4 bits; int8 additionally runs the
-        s8 ACS matmul with int32 metrics); decisions must match the f32
-        compare+min path bit-for-bit on tie-heavy quantized data, for
-        both the {0,±127} and {0,±1} hard alphabets."""
-        rng = np.random.default_rng(10)
-        rmask = jnp.asarray(rng.integers(0, 2, size=(16, 3))
-                            .astype(np.float32))
-        for one in (127, 1):
-            vals = (rng.integers(-1, 2, size=(16, fused.N_MOTHER)) * one)
-            ref = np.asarray(decode_segmented_pallas(
-                jnp.asarray(vals.astype(np.float32)), rmask, fused.N_SYM,
-                fused.BOUNDARIES, tile_b=8, interpret=True))
-            packed = np.asarray(decode_segmented_pallas(
-                jnp.asarray(vals.astype(np.float32)).astype(jnp.bfloat16),
-                rmask, fused.N_SYM, fused.BOUNDARIES, tile_b=8,
-                interpret=True))
-            np.testing.assert_array_equal(packed, ref)
-            if one == 1:
-                p8 = np.asarray(decode_segmented_pallas(
-                    jnp.asarray(vals.astype(np.int8)), rmask, fused.N_SYM,
-                    fused.BOUNDARIES, tile_b=8, interpret=True))
-                np.testing.assert_array_equal(p8, ref)
-
-    def test_grouped_bm_matches_ungrouped(self):
-        """group>1 (one branch-metric matmul per `group` quad-steps)
-        must be decision-identical to the plain int8 radix-16 path on
-        tie-heavy quantized data, across restart masks."""
-        rng = np.random.default_rng(11)
-        vals = (rng.integers(-1, 2, size=(16, fused.N_MOTHER))).astype(
-            np.int8)
-        rmask = jnp.asarray(rng.integers(0, 2, size=(16, 3))
-                            .astype(np.float32))
-        ref = np.asarray(decode_segmented_pallas(
-            jnp.asarray(vals), rmask, fused.N_SYM, fused.BOUNDARIES,
-            tile_b=8, interpret=True))
-        for g in (2, 4):
-            got = np.asarray(decode_segmented_pallas(
-                jnp.asarray(vals), rmask, fused.N_SYM, fused.BOUNDARIES,
-                tile_b=8, interpret=True, group=g))
-            np.testing.assert_array_equal(got, ref, err_msg=f"group={g}")
 
     def test_clean_roundtrip_segments(self):
         rng = np.random.default_rng(8)

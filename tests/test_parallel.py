@@ -151,7 +151,7 @@ class TestShardedPfb:
 
 
 class TestLockedStep2D:
-    """2-D (host, chip) mesh: time over hosts (DCN halos), carriers
+    """2-D (host, chip) mesh: time over hosts (halo exchange), carriers
     over chips — outputs must match the unsharded steady chain."""
 
     def test_matches_unsharded(self, devices):

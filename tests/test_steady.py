@@ -106,24 +106,3 @@ class TestGroupedDecode:
                 np.testing.assert_array_equal(res["NDB2"].type1[row], payload[1])
         idx, res = groups["sync"]
         assert res["SB1"].crc_ok.all() and res["SB2"].crc_ok.all()
-
-
-class TestPallasDemodChain:
-    def test_pallas_demod_full_chain(self):
-        """fast="pallas" (fused VMEM demod kernel) decodes the same
-        mixed capture as fast=True, CRC-OK everywhere."""
-        slots, kinds, _ = _mixed_slots(seed=3)
-        Cc, S = slots.shape[:2]
-        pad = np.zeros((Cc, 64), np.int8)
-        bits = np.concatenate([pad, slots.reshape(Cc, -1), pad], axis=1)
-        iq = dqpsk.modulate(bits, sps=2)
-        re = jnp.asarray(np.real(iq).astype(np.float32))
-        im = jnp.asarray(np.imag(iq).astype(np.float32))
-        inits = jnp.asarray(np.full(Cc, INIT, np.uint32))
-        ref = steady.locked_step_ri(re, im, inits, phase_bit=64, n_slots=S)
-        out = steady.locked_step_ri(re, im, inits, phase_bit=64, n_slots=S,
-                                    fast="pallas")
-        np.testing.assert_array_equal(np.asarray(out["kinds"]), kinds)
-        assert np.asarray(out["crc_ok"]).all()
-        np.testing.assert_array_equal(np.asarray(out["bits"]),
-                                      np.asarray(ref["bits"]))

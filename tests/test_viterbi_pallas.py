@@ -1,135 +1,164 @@
-"""Pallas fused Viterbi kernel vs the XLA scan reference (interpret mode)."""
+"""Triton-route Pallas Viterbi kernel vs the XLA scan reference.
+
+On the CPU the kernel runs in Pallas interpret mode; the compiled kernel
+is compared with the scan on the card by the `gpu`-marked test (run by
+chip_smoke.py). Every case must be bit-identical: the kernel's metrics
+are exact integer sums and its tie rules are the scan's.
+"""
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
+from tetra_tpu.constants import CONV_GENERATORS_CCH, CONV_GENERATORS_TCH
+from tetra_tpu.lmac import fused
 from tetra_tpu.ops import rcpc, viterbi
 from tetra_tpu.ops.viterbi_pallas import decode_pallas
-from tetra_tpu.constants import CONV_GENERATORS_TCH
+
+CCH = tuple(map(tuple, CONV_GENERATORS_CCH))
+TCH = tuple(map(tuple, CONV_GENERATORS_TCH))
 
 
-class TestPallasViterbi:
-    def test_clean_roundtrip(self):
-        rng = np.random.default_rng(1)
-        data = rng.integers(0, 2, size=(16, 80)).astype(np.int8)
-        data[:, -4:] = 0
-        mother = rcpc.conv_encode(jnp.asarray(data))
-        soft = jnp.asarray((1.0 - 2.0 * np.asarray(mother)) * 127.0)
-        out = np.asarray(decode_pallas(soft, 80, tile_b=8, interpret=True))
-        np.testing.assert_array_equal(out, data)
+def _soft(kind, rng, B, n_sym, n):
+    """Soft mother-bit batches of the alphabets the pipeline feeds."""
+    if kind == "hard":          # hard slicer after assembly: ±127 / 0
+        v = rng.integers(-1, 2, size=(B, n_sym * n)) * 127
+    elif kind == "soft":        # soft demod reliabilities times 127
+        v = rng.integers(-31, 32, size=(B, n_sym * n)) * 127
+    elif kind == "ties":        # ±1/0: many exactly tied path metrics
+        v = rng.integers(-1, 2, size=(B, n_sym * n))
+    else:                       # all erasures: every metric ties
+        v = np.zeros((B, n_sym * n))
+    return jnp.asarray(v.astype(np.float32))
 
-    def test_matches_scan_on_quantized_garbage(self):
-        rng = np.random.default_rng(2)
-        soft = jnp.asarray((rng.integers(-1, 2, size=(24, 80 * 4)) * 127)
-                           .astype(np.float32))
-        ref = np.asarray(viterbi.decode(soft, 80))
-        out = np.asarray(decode_pallas(soft, 80, tile_b=8, interpret=True))
-        np.testing.assert_array_equal(out, ref)
 
-    def test_batch_padding(self):
-        """Batch not divisible by the tile size pads and unpads cleanly."""
+def _kernel(soft, n_sym, gens=CCH, rmask=None, boundaries=(), rows=16):
+    return np.asarray(decode_pallas(soft, n_sym, gens, rmask, boundaries,
+                                    block_rows=rows, interpret=True))
+
+
+class TestKernelVsScan:
+    @pytest.mark.parametrize("kind", ["hard", "soft", "ties", "erasures"])
+    def test_alphabets(self, kind):
+        rng = np.random.default_rng(len(kind))
+        soft = _soft(kind, rng, 32, 80, 4)
+        np.testing.assert_array_equal(_kernel(soft, 80),
+                                      np.asarray(viterbi.decode(soft, 80)))
+
+    @pytest.mark.parametrize("B", [1, 5, 17, 40])
+    def test_partial_block(self, B):
+        """Batches that do not fill a block pad and unpad cleanly."""
+        rng = np.random.default_rng(B)
+        soft = _soft("hard", rng, B, 72, 4)
+        out = _kernel(soft, 72)
+        assert out.shape == (B, 72) and out.dtype == np.int8
+        np.testing.assert_array_equal(out,
+                                      np.asarray(viterbi.decode(soft, 72)))
+
+    def test_longer_input_is_truncated(self):
+        """Inputs longer than n_sym*N decode their first n_sym steps."""
         rng = np.random.default_rng(3)
-        data = rng.integers(0, 2, size=(5, 80)).astype(np.int8)
-        data[:, -4:] = 0
-        mother = rcpc.conv_encode(jnp.asarray(data))
-        soft = jnp.asarray((1.0 - 2.0 * np.asarray(mother)) * 127.0)
-        out = np.asarray(decode_pallas(soft, 80, tile_b=4, interpret=True))
-        np.testing.assert_array_equal(out, data)
+        soft = _soft("soft", rng, 8, 100, 4)
+        np.testing.assert_array_equal(_kernel(soft, 80),
+                                      np.asarray(viterbi.decode(soft, 80)))
 
-    def test_int8_soft_matches_scan(self):
-        """The pipeline's TPU path feeds ±127/0 int8 soft bits into the
-        packed-int32 radix-16 kernel (lmac/pipeline.py::_decode_fec);
-        decisions must match the f32 scan reference including garbage
-        ties. n_sym=288 is the SCH/F layout the FEC bench runs."""
-        rng = np.random.default_rng(7)
-        raw = (rng.integers(-1, 2, size=(24, 288 * 4)) * 127)
-        ref = np.asarray(viterbi.decode(jnp.asarray(raw.astype(np.float32)),
-                                        288))
-        out = np.asarray(decode_pallas(jnp.asarray(raw.astype(np.int8)),
-                                       288, tile_b=8, interpret=True))
-        np.testing.assert_array_equal(out, ref)
-
-    def test_tch_generators(self):
+    @pytest.mark.parametrize("kind", ["hard", "soft"])
+    def test_tch_generators(self, kind):
         rng = np.random.default_rng(4)
+        soft = _soft(kind, rng, 24, 72, 3)
+        np.testing.assert_array_equal(
+            _kernel(soft, 72, TCH), np.asarray(viterbi.decode(soft, 72, TCH)))
+
+    def test_tch_roundtrip(self):
+        rng = np.random.default_rng(5)
         data = rng.integers(0, 2, size=(8, 72)).astype(np.int8)
         data[:, -4:] = 0
         mother = rcpc.conv_encode(jnp.asarray(data), CONV_GENERATORS_TCH)
         soft = jnp.asarray((1.0 - 2.0 * np.asarray(mother)) * 127.0)
-        out = np.asarray(decode_pallas(soft, 72, CONV_GENERATORS_TCH,
-                                       tile_b=8, interpret=True))
-        np.testing.assert_array_equal(out, data)
+        np.testing.assert_array_equal(_kernel(soft, 72, TCH), data)
+
+    def test_cch_roundtrip(self):
+        rng = np.random.default_rng(6)
+        data = rng.integers(0, 2, size=(16, 80)).astype(np.int8)
+        data[:, -4:] = 0
+        mother = rcpc.conv_encode(jnp.asarray(data))
+        soft = jnp.asarray((1.0 - 2.0 * np.asarray(mother)) * 127.0)
+        np.testing.assert_array_equal(_kernel(soft, 80), data)
 
 
-class TestAssembledKernel:
-    def test_fused_assembly_crc_matches_reference(self):
-        """decode_assembled_pallas (assembly prologue + segmented
-        Viterbi + CRC epilogue in ONE kernel) is bit-identical to the
-        scan decode on pmat-assembled soft plus ops.crc.crc16_check
-        per segment, over a mixed SYNC/SCH_F/NDB batch with
-        corruption."""
-        import jax.numpy as jnp
-        from tetra_tpu.lmac import fused
-        from tetra_tpu.ops import crc
-        from tetra_tpu.ops.viterbi_pallas import decode_assembled_pallas
-        from tetra_tpu import tx, testpdu
-        from tetra_tpu.ops.scramble import scramb_get_init
+class TestSegmentRestarts:
+    @pytest.mark.parametrize("kind", ["hard", "soft", "ties"])
+    def test_random_restarts(self, kind):
+        """Unified 288-step trellis with random per-row restart masks at
+        the fused path's boundaries == the segmented scan."""
+        rng = np.random.default_rng(20 + len(kind))
+        soft = _soft(kind, rng, 40, fused.N_SYM, 4)
+        rm = jnp.asarray(rng.integers(0, 2, size=(40, 3)).astype(np.float32))
+        want = np.asarray(fused.decode_segmented(soft, rm))
+        np.testing.assert_array_equal(
+            _kernel(soft, fused.N_SYM, CCH, rm, fused.BOUNDARIES), want)
 
-        INIT = scramb_get_init(262, 42, 1)
-        sync_b = np.asarray(tx.make_sync_burst(
-            testpdu.make_sync_pdu(), testpdu.make_sysinfo_pdu(),
-            testpdu.make_access_assign_bits(), jnp.uint32(INIT)), np.uint8)
-        schf_b = np.asarray(tx.make_schf_burst(
-            testpdu.make_resource_pdu(ssi=0x42),
-            testpdu.make_access_assign_bits(), jnp.uint32(INIT)), np.uint8)
-        ndb_b = np.asarray(tx.make_ndb_burst(
-            testpdu.make_resource_pdu(ssi=1, total_len=124),
-            testpdu.make_resource_pdu(ssi=2, total_len=124),
-            testpdu.make_access_assign_bits(), jnp.uint32(INIT)), np.uint8)
-        slots = np.stack([sync_b, schf_b, ndb_b, schf_b] * 4)
-        slots[5, 100:140] ^= 1          # corruption -> CRC failures
-        slots[10, 300:320] ^= 1
-        kinds = np.asarray([0, 1, 2, 1] * 4)
-        inits = np.full(len(slots), INIT, np.uint32)
+    def test_kind_layouts_vs_independent_blocks(self):
+        """Each restart layout (SYNC 80+144+pad, SCH/F, NDB 144+144)
+        decodes exactly as independent per-segment decodes."""
+        rng = np.random.default_rng(7)
+        layouts = [(80, 144, 64), (288,), (144, 144), (80, 64, 80, 64)]
+        soft = np.asarray(_soft("hard", rng, len(layouts), 288, 4))
+        rm = np.zeros((len(layouts), 3), np.float32)
+        want = np.zeros((len(layouts), 288), np.int8)
+        for i, segs in enumerate(layouts):
+            t = 0
+            for n in segs:
+                if t:
+                    rm[i, fused.BOUNDARIES.index(t)] = 1
+                want[i, t:t + n] = np.asarray(viterbi.decode(
+                    jnp.asarray(soft[i:i + 1, 4 * t:4 * (t + n)]), n))[0]
+                t += n
+        got = _kernel(jnp.asarray(soft), 288, CCH, jnp.asarray(rm),
+                      fused.BOUNDARIES)
+        np.testing.assert_array_equal(got, want)
 
-        soft, rm, _ = fused.assemble_soft(
-            jnp.asarray(slots, jnp.int8), jnp.asarray(inits),
-            jnp.asarray(kinds))
-        bits_ref = np.asarray(fused.decode_segmented(soft, rm))
-        ok_ref = np.stack(
-            [np.asarray(crc.crc16_check(jnp.asarray(
-                bits_ref[:, off:off + ln])))
-             for off, ln in fused.CRC_SEGS], axis=1)
-        assert ok_ref.any() and not ok_ref.all()
 
-        x, P_np, _, rm2, _ = fused.assemble_parts(
-            jnp.asarray(slots, jnp.int8), jnp.asarray(inits),
-            jnp.asarray(kinds))
-        bits, ok = decode_assembled_pallas(
-            jnp.transpose(x).astype(jnp.int8), rm2,
-            np.ascontiguousarray(P_np.T.astype(np.int8)),
-            fused.N_SYM, fused.BOUNDARIES, fused.CRC_SEGS,
-            tile_b=16, interpret=True)
-        assert np.array_equal(np.asarray(bits), bits_ref)
-        assert np.array_equal(np.asarray(ok) != 0, ok_ref)
+class TestSelectionPoint:
+    """viterbi.decode_fast picks the kernel per lowering platform."""
 
-    def test_single_segment_schf(self):
-        """No-boundary single-kind form (the pipeline._decode_fec TPU
-        path): SCH/F pmat + one CRC segment."""
-        import jax.numpy as jnp
-        from tetra_tpu.lmac import pipeline
-        from tetra_tpu.ops import crc as crc_mod
-        from tetra_tpu.ops.viterbi_pallas import decode_assembled_pallas
+    def _lowered(self, platform):
+        soft = jnp.zeros((8, fused.N_MOTHER), jnp.float32)
+        rm = jnp.zeros((8, 3), jnp.float32)
+        f = jax.jit(lambda s, r: viterbi.decode_fast(
+            s, fused.N_SYM, rmask=r, boundaries=fused.BOUNDARIES))
+        return f.trace(soft, rm).lower(
+            lowering_platforms=(platform,)).as_text()
 
-        rng = np.random.default_rng(3)
-        sgn = rng.choice(np.asarray([-1, 0, 1], np.int8), size=(12, 432))
-        pmatf = pipeline._fec_matrix("SCH_F")
-        soft = sgn.astype(np.float32) @ pmatf
-        bits_ref = np.asarray(viterbi.decode(jnp.asarray(soft), 288))
-        ok_ref = np.asarray(crc_mod.crc16_check(
-            jnp.asarray(bits_ref[:, :284])))
-        bits, ok = decode_assembled_pallas(
-            jnp.asarray(sgn.T), jnp.zeros((12, 0), jnp.float32),
-            np.ascontiguousarray((pmatf.T != 0).astype(np.int8)),
-            288, (), ((0, 284),), tile_b=4, interpret=True)
-        assert np.array_equal(np.asarray(bits), bits_ref)
-        assert np.array_equal(np.asarray(ok)[:, 0] != 0, ok_ref)
+    def test_cpu_runs_the_scan(self):
+        assert "triton" not in self._lowered("cpu").lower()
+
+    def test_cuda_runs_the_kernel(self):
+        """Lowering for an NVIDIA GPU (done here without one) emits the
+        Triton kernel call, so the Triton lowering itself is checked."""
+        assert "triton" in self._lowered("cuda").lower()
+
+    def test_cpu_result_matches_scan(self):
+        rng = np.random.default_rng(8)
+        soft = _soft("hard", rng, 12, fused.N_SYM, 4)
+        rm = jnp.asarray(rng.integers(0, 2, size=(12, 3)).astype(np.float32))
+        got = viterbi.decode_fast(soft, fused.N_SYM, rmask=rm,
+                                  boundaries=fused.BOUNDARIES)
+        np.testing.assert_array_equal(
+            np.asarray(got), np.asarray(fused.decode_segmented(soft, rm)))
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_scan(gpu):
+    """The compiled kernel on the card == the scan on the CPU, at the
+    1024-carrier chunk's row count."""
+    rng = np.random.default_rng(9)
+    soft = _soft("soft", rng, 20_000, fused.N_SYM, 4)
+    rm = jnp.asarray(rng.integers(0, 2, size=(20_000, 3)).astype(np.float32))
+    got = decode_pallas(jax.device_put(soft, gpu), fused.N_SYM, CCH,
+                        jax.device_put(rm, gpu), fused.BOUNDARIES)
+    cpu = jax.devices("cpu")[0]
+    with jax.default_device(cpu):
+        want = fused.decode_segmented(jax.device_put(soft, cpu),
+                                      jax.device_put(rm, cpu))
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

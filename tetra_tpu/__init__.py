@@ -1,4 +1,4 @@
-"""tetra_tpu — a TPU-native TETRA V+D air-interface framework.
+"""tetra_tpu — a TETRA V+D air-interface framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 osmocom/osmo-tetra reference receiver (see SURVEY.md): pi/4-DQPSK
@@ -6,7 +6,8 @@ demodulation, burst synchronisation, the lower-MAC FEC chain
 (descramble → deinterleave → depuncture → Viterbi → CRC), upper-MAC /
 LLC / MLE PDU parsing, the TEA/TAA1 crypto suite, and GSMTAP export —
 batched over carriers and time so that hundreds of carriers decode in
-real time on a single TPU chip.
+real time on a single accelerator (an NVIDIA GPU; every test runs on
+the CPU).
 
 Layering mirrors the reference's SAP boundaries (reference
 src/tetra_prim.h:10-16) but the signal path is tensorised:

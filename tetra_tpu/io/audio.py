@@ -6,7 +6,7 @@ default 96 kHz), `float_to_complex` pairs the channels, then a
 freq-xlating low-pass (`-c` calibration offset, 25 kHz cut-off) and a
 fractional resampler bring the signal to the demod rate (36 kHz).
 
-TPU design: this module owns only the byte-level PCM ingest — the same
+Design: this module owns only the byte-level PCM ingest — the same
 interleaved frames ALSA would deliver, read from any file object, pipe
 or fd (`arecord -f S16_LE -c 2 -r 96000 -t raw -D hw:1 | ...`), so no
 audio stack is needed in-process. The downstream mix + low-pass +

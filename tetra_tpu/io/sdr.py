@@ -128,7 +128,7 @@ class RtlTcpSource:
         return self._to_complex(raw)
 
     def read_ri(self, n_samples: int):
-        """Planar (re, im) float32 variant (device-transport friendly)."""
+        """Planar (re, im) float32 variant (the device's layout)."""
         raw = np.frombuffer(self._read_exact(2 * n_samples), dtype=np.uint8)
         f = (raw.astype(np.float32) - 127.5) * (1.0 / 127.5)
         return np.ascontiguousarray(f[0::2]), np.ascontiguousarray(f[1::2])

@@ -25,6 +25,12 @@ __all__ = ["verify_train_seq", "classify_train_seq", "locked_step_bits",
            "locked_step_iq", "locked_step_fused"]
 
 
+def _dot(w, seq):
+    """±1 training-window correlation (exact small integers)."""
+    return jnp.dot(w, seq, preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
+
+
 def classify_train_seq(slots, min_agree: float = 0.75):
     """Noise-tolerant slot classification: nearest training template by
     bit-agreement fraction, -1 below `min_agree`.
@@ -45,9 +51,9 @@ def classify_train_seq(slots, min_agree: float = 0.75):
     w_norm = 1.0 - 2.0 * slots[
         ..., C.NORM_TRAIN_OFFSET:C.NORM_TRAIN_OFFSET + 22].astype(jnp.float32)
     fr = lambda corr, n: (corr / n + 1.0) * 0.5
-    f_sync = fr(jnp.dot(w_sync, y, preferred_element_type=jnp.float32), 38.0)
-    f_n = fr(jnp.dot(w_norm, nseq, preferred_element_type=jnp.float32), 22.0)
-    f_p = fr(jnp.dot(w_norm, p, preferred_element_type=jnp.float32), 22.0)
+    f_sync = fr(_dot(w_sync, y), 38.0)
+    f_n = fr(_dot(w_norm, nseq), 22.0)
+    f_p = fr(_dot(w_norm, p), 22.0)
     stacked = jnp.stack([f_sync, f_n, f_p], axis=-1)
     kind = jnp.argmax(stacked, axis=-1).astype(jnp.int32)
     best = jnp.max(stacked, axis=-1)
@@ -67,9 +73,9 @@ def verify_train_seq(slots):
         ..., C.SYNC_TRAIN_OFFSET:C.SYNC_TRAIN_OFFSET + 38].astype(jnp.float32)
     w_norm = 1.0 - 2.0 * slots[
         ..., C.NORM_TRAIN_OFFSET:C.NORM_TRAIN_OFFSET + 22].astype(jnp.float32)
-    is_sync = jnp.dot(w_sync, y, preferred_element_type=jnp.float32) == 38.0
-    is_n = jnp.dot(w_norm, nseq, preferred_element_type=jnp.float32) == 22.0
-    is_p = jnp.dot(w_norm, p, preferred_element_type=jnp.float32) == 22.0
+    is_sync = _dot(w_sync, y) == 38.0
+    is_n = _dot(w_norm, nseq) == 22.0
+    is_p = _dot(w_norm, p) == 22.0
     return jnp.where(is_sync, 0, jnp.where(is_n, 1, jnp.where(is_p, 2, -1)))
 
 
@@ -151,14 +157,11 @@ def locked_step_ri(re, im, inits, phase_bit: int = 0, sps: int = 2,
                    decoders: tuple = ("sync", "schf", "ndb")):
     """Full chain from planar baseband: demod -> slice -> verify -> FEC.
 
-    re/im: [C, T] float32 at sps samples/symbol; slot boundaries assumed
-    at bit `phase_bit` (steady-state lock). Planar input keeps complex64
-    off the device transport (some TPU paths don't support it).
+    re/im: [C, T] float32 at sps samples/symbol (planar re/im); slot
+    boundaries assumed at bit `phase_bit` (steady-state lock).
     fast=True uses the trig-free hard-decision demod (identical bits to
     the angle+slicer path on clean/locked signals, no atan2);
-    fast="pallas" routes the same demod through the fused VMEM kernel
-    (phy.demod_pallas — one HBM read per sample instead of half a dozen
-    [C, T] intermediates); fast="slotwise" adds per-slot timing re-pick
+    fast="slotwise" adds per-slot timing re-pick
     + blind residual-CFO correction for degraded signals (CFO ramps,
     sample-clock drift — dqpsk.demodulate_hard_slotwise_ri);
     fast="eq" additionally fits a per-slot pilot-aided T/2-spaced
@@ -193,23 +196,7 @@ def locked_step_ri(re, im, inits, phase_bit: int = 0, sps: int = 2,
         out = locked_step_bits(slots, inits, decoders=decoders)
         out["bits"] = slots.reshape(*slots.shape[:-2], S * C.BITS_PER_TS)
         return out
-    if fast == "pallas" and phase_bit % 2 == 0:
-        # slot framing cut on the demod's packed per-symbol decisions —
-        # slicing the unpacked bit stream at phase_bit relayouts the
-        # whole stream (~2 ms at bench shapes)
-        from tetra_tpu.phy.demod_pallas import demodulate_hard_slots_ri_pallas
-        S = n_slots if n_slots is not None else \
-            (re.shape[-1] * 2 // sps - phase_bit) // C.BITS_PER_TS
-        slots, bits = demodulate_hard_slots_ri_pallas(re, im, S,
-                                                      phase_bit=phase_bit,
-                                                      sps=sps)
-        out = locked_step_bits(slots, inits, decoders=decoders)
-        out["bits"] = bits[..., phase_bit:]
-        return out
-    if fast == "pallas":
-        from tetra_tpu.phy.demod_pallas import demodulate_hard_ri_pallas
-        bits = demodulate_hard_ri_pallas(re, im, sps=sps)
-    elif fast:
+    if fast:
         bits = dqpsk.demodulate_hard_ri(re, im, sps=sps)
     else:
         syms = dqpsk.demodulate_ri(re, im, sps=sps)

@@ -5,7 +5,7 @@ Reference behaviour: src/lower_mac/crc_simple.c:46-106 (CRC16, init
 0x1D0F) and src/tetra_llc_pdu.c:105-126 (FCS-32, poly 0x04C11DB7, init
 0xFFFFFFFF with a short-frame left shift, final complement).
 
-TPU design: a CRC over a fixed-length bit vector is affine over GF(2):
+Design: a CRC over a fixed-length bit vector is affine over GF(2):
 crc(x) = x @ M_L  xor  C_L. We precompute (M, C) per length once on
 host; the device-side check over a batch of blocks is then a single
 small matmul — no bit-serial loop, and it fuses with the rest of the

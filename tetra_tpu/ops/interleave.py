@@ -3,7 +3,7 @@
 Reference behaviour: src/lower_mac/tetra_interleave.c:36-59 — the
 permutation k = 1 + (a*i mod K).
 
-TPU design: the permutation is precomputed once as an index tensor and
+Design: the permutation is precomputed once as an index tensor and
 applied with a batched gather (`jnp.take`), so interleaving any number
 of blocks is a single vectorised op.
 """

@@ -3,7 +3,7 @@
 Reference behaviour: src/lower_mac/tetra_conv_enc.c — a rate-1/4 (data)
 or rate-1/3 (speech) K=5 mother code plus 7 puncturing schemes.
 
-TPU design:
+Design:
 - The mother encoder is feed-forward: each output bit is an XOR of
   shifted copies of the input, so encoding a whole (batched) block is a
   handful of vector XORs — no sequential state machine.

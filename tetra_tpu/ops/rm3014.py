@@ -5,7 +5,7 @@ Reference behaviour: src/lower_mac/tetra_rm3014.c — systematic encode
 truncate (no correction in the reference; reference rx path doesn't even
 call it, see tetra_lower_mac.c:268-271).
 
-TPU design: encode is a GF(2) matmul with the [14, 30] systematic
+Design: encode is a GF(2) matmul with the [14, 30] systematic
 generator; decode adds nearest-codeword correction via a precomputed
 syndrome table (a strict superset of the reference's behaviour, off by
 default for bit-parity).

@@ -3,7 +3,7 @@
 Reference behaviour: src/lower_mac/tetra_scramb.c — a 32-tap Fibonacci
 LFSR whose output keystream is XORed over the block.
 
-TPU design: the LFSR output is *linear* in the 32 initial state bits, so
+Design: the LFSR output is *linear* in the 32 initial state bits, so
 instead of a sequential bit loop we precompute (once, on host) a GF(2)
 matrix M[32, n] with ks = init_bits @ M mod 2. Keystream generation for
 any (possibly traced) scrambling code is then a single tiny matmul that

@@ -1,16 +1,26 @@
-"""Fused Pallas TPU kernel for the 16-state Viterbi decoder.
+"""Fused Viterbi decoder for the TETRA 16-state codes as one Pallas
+kernel on the Triton route (NVIDIA GPUs).
 
-Equivalent to tetra_tpu.ops.viterbi.decode (same trellis, same soft
-semantics) but fused into one kernel: branch metrics, ACS forward pass
-and traceback all run in VMEM with the batch tiled over the grid, so
-per-block decisions never round-trip to HBM.
+Same trellis, soft convention and tie semantics as the XLA scan in
+tetra_tpu.ops.viterbi (`decode`, `decode_segmented`): strict `c1 > c0`
+survivor choice and the lowest index among maximal states wherever a
+best state is picked. Every metric is an integer-valued float32 sum
+below 2^24, so decisions and output bits are bit-identical to the scan.
 
-Layout: the BATCH lives in the lane dimension (so a 256-block tile
-fills two 128-lane vregs) and the 16 states in sublanes; time-indexed
-buffers keep time as an untiled leading dim, so dynamic time indexing
-needs no alignment and nothing is padded to 128 lanes. All
-state-selection steps are dense 16x16 matmuls against one-hot
-selection matrices — no gathers.
+Design: each program owns a block of `block_rows` rows, with rows as the
+vector axis (one row per thread). The 16 path metrics are 16 unrolled
+[R] register vectors, so the trellis permutation is static Python
+indexing. The branch metrics are signed sums of the step's N soft
+values with signs known at trace time. The forward pass runs as an
+in-kernel `fori_loop`; each step packs its 16 survivor decisions into
+one int32 per row and stores it to a time-major [n_sym, B] buffer in
+global memory (~1.2 KB per row, L2-resident at chunk sizes). The
+traceback runs in the same kernel from those words. Trellis restarts at
+static `boundaries` (per-row mask) split the loops at those steps, as
+the segmented scan does.
+
+Inputs are time-major ([n_sym*N, B]), so every per-step load and store
+is one coalesced [R] vector.
 """
 from __future__ import annotations
 
@@ -20,1025 +30,152 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from tetra_tpu.constants import CONV_GENERATORS_CCH
-from tetra_tpu.ops.viterbi import trellis_signs, _P0, _P1, _BIT
+from tetra_tpu.ops.viterbi import trellis_signs, _NEG
 
-__all__ = ["decode_pallas", "decode_segmented_pallas",
-           "decode_assembled_pallas"]
+__all__ = ["decode_pallas", "BLOCK_ROWS"]
 
-_NEG = np.float32(-1e6)  # large enough to exclude invalid paths, small enough that f32 adds of ±127 stay exact
+BLOCK_ROWS = 64      # rows per program: ~20k rows -> ~320 programs
 
 
-@functools.lru_cache(maxsize=4)
-def _tables(generators):
-    """Constant matrices, all oriented for column-vector (state x batch)
-    operands:
-
-    sgn [2, 16, N]:  branch-metric signs into next-state ns from its
-                     p0/p1 predecessor (row ns).
-    sel [4, 16, 16]: row 0/1 = P0/P1 metric-selection (c = sel @ m),
-                     row 2/3 = traceback propagation (prev = sel.T @ onehot).
-    sbits [1, 16]:   input bit of each state (ns & 1).
-    """
-    signs = trellis_signs(generators)  # [16, 2, N]
-    s0 = np.stack([signs[_P0[ns], _BIT[ns]] for ns in range(16)])  # [16, N]
-    s1 = np.stack([signs[_P1[ns], _BIT[ns]] for ns in range(16)])
-    p0sel = np.zeros((16, 16), np.float32)   # c0 = p0sel @ metric
-    p1sel = np.zeros((16, 16), np.float32)
-    for ns in range(16):
-        p0sel[ns, _P0[ns]] = 1.0
-        p1sel[ns, _P1[ns]] = 1.0
-    # stacked forms: one matmul per ACS step / traceback step
-    sgn_stack = np.concatenate([s0, s1], axis=0).astype(np.float32)      # [32, N]
-    psel_stack = np.concatenate([p0sel, p1sel], axis=0).astype(np.float32)  # [32, 16]
-    tbT = np.concatenate([p0sel.T, p1sel.T], axis=1).astype(np.float32)  # [16, 32]
-    sbits = (np.arange(16) & 1).astype(np.float32)[None, :]
-    return sgn_stack, psel_stack, tbT, sbits
+def _bm_plan(generators):
+    """Static branch-metric plan: for every (state, input bit) the
+    index of a distinct sign pattern and whether it is negated, plus
+    the distinct patterns (sign vectors over the N outputs)."""
+    signs = trellis_signs(generators)                  # [16, 2, N]
+    pats, plan = [], {}
+    for s in range(16):
+        for b in (0, 1):
+            v = tuple(int(x) for x in signs[s, b])
+            neg = tuple(-x for x in v)
+            if v in pats:
+                plan[s, b] = (pats.index(v), False)
+            elif neg in pats:
+                plan[s, b] = (pats.index(neg), True)
+            else:
+                pats.append(v)
+                plan[s, b] = (len(pats) - 1, False)
+    return pats, plan
 
 
-def _make_kernel(n_sym: int, n_out: int, tile_b: int):
-    # soft_ref: [n_sym, N, tile]; bits_ref: [n_sym, 1, tile];
-    # dec scratch: [n_sym, 16, tile] int8; metric scratch: [16, tile].
-    def kernel(soft_ref, sgn_ref, psel_ref, tbT_ref, sbits_ref, bits_ref,
-               dec_ref, metric_ref):
-        sgn = sgn_ref[:]            # [32, N]  (s0 ; s1 stacked)
-        psel = psel_ref[:]          # [32, 16] (p0sel ; p1sel stacked)
-        tbT = tbT_ref[:]            # [16, 32] (p0sel.T | p1sel.T)
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        metric_ref[:] = jnp.where(row == 0, 0.0, _NEG)
-
-        def acs_step(t, _):
-            sym = soft_ref[pl.ds(t, 1)][0]                      # [N, tile]
-            # ±1 signs x {±127, 0} soft values: products are integers
-            # < 256, exact in the MXU's bf16 multiplies (f32 accumulate)
-            bm = jnp.dot(sgn, sym, preferred_element_type=jnp.float32)  # [32, tile]
-            m = metric_ref[:]                                   # [16, tile]
-            c = jnp.dot(psel, m, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST) + bm
-            c0, c1 = c[:16], c[16:]
-            dec_ref[pl.ds(t, 1), :, :] = (c1 > c0).astype(jnp.int8)[None]
-            metric_ref[:] = jnp.maximum(c0, c1)
-            return 0
-
-        jax.lax.fori_loop(0, n_sym, acs_step, 0)
-
-        # traceback: one-hot state column per batch lane, walked backwards
-        m = metric_ref[:]
-        best = jnp.max(m, axis=0, keepdims=True)
-        is_best = m == best
-        # break ties toward the lowest state index like argmax
-        rank = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        min_rank = jnp.min(jnp.where(is_best, rank, 16), axis=0, keepdims=True)
-        onehot = (rank == min_rank).astype(jnp.float32)          # [16, tile]
-
-        def tb_step(i, onehot):
-            t = n_sym - 1 - i
-            # one-hot operands: exact at default MXU precision
-            bit = jnp.dot(sbits_ref[:], onehot,
-                          preferred_element_type=jnp.float32)     # [1, tile]
-            bits_ref[pl.ds(t, 1), :, :] = bit.astype(jnp.int8)[None]
-            took = dec_ref[pl.ds(t, 1), :, :][0].astype(jnp.float32)  # [16, tile]
-            sel1 = onehot * took
-            sel0 = onehot - sel1
-            selcat = jnp.concatenate([sel0, sel1], axis=0)        # [32, tile]
-            prev = jnp.dot(tbT, selcat, preferred_element_type=jnp.float32)
-            return prev
-
-        jax.lax.fori_loop(0, n_sym, tb_step, onehot)
-
-    return kernel
+def _best_state(m):
+    """Lowest index among the maximal metrics (jnp.argmax semantics)."""
+    best = m[0]
+    for s in range(1, 16):
+        best = jnp.maximum(best, m[s])
+    idx = jnp.full(best.shape, 15, jnp.int32)
+    for s in range(14, -1, -1):
+        idx = jnp.where(m[s] == best, jnp.int32(s), idx)
+    return idx
 
 
-@functools.lru_cache(maxsize=4)
-def _tables4(generators):
-    """Radix-4 tables: two trellis steps fused into one ACS iteration.
+def _make_kernel(n_sym: int, generators, boundaries: tuple, rows: int):
+    n = len(generators)
+    pats, plan = _bm_plan(generators)
+    edges = (0,) + tuple(boundaries) + (n_sym,)
 
-    Path index j = h*2 + g for next-state ns: h picks the intermediate
-    state im = (ns>>1)|(h<<3), g picks its predecessor p =
-    (ns>>2)|(h<<2)|(g<<3). 'Lowest j wins on tie' composes exactly the
-    radix-2 pairwise tie-breaks (c1 > c0 keeps the lower predecessor),
-    so radix-4 decisions & traceback are bit-identical to two radix-2
-    steps.
-
-    sgn4 [64, 2N]: row j*16+ns = (signs of symbol 2t from p) ++
-                   (signs of symbol 2t+1 from im)
-    psel4 [64,16]: c = psel4 @ m selects m[p] per (j, ns)
-    tb4T [16,64]:  traceback prev = tb4T @ (per-j masked one-hots)
-    sbits0/1 [1,16]: input bits (ns>>1)&1 and ns&1 of the double step
-    """
-    signs = trellis_signs(generators)
-    n = signs.shape[-1]
-    sgn4 = np.zeros((64, 2 * n), np.float32)
-    psel4 = np.zeros((64, 16), np.float32)
-    tb4T = np.zeros((16, 64), np.float32)
-    for ns in range(16):
-        b0, b1 = (ns >> 1) & 1, ns & 1
-        for j in range(4):
-            h, g = j >> 1, j & 1
-            p = (ns >> 2) | (h << 2) | (g << 3)
-            im = ((p << 1) | b0) & 0xF
-            row = j * 16 + ns
-            sgn4[row, :n] = signs[p, b0]
-            sgn4[row, n:] = signs[im, b1]
-            psel4[row, p] = 1.0
-            tb4T[p, row] = 1.0
-    sbits1 = (np.arange(16) & 1).astype(np.float32)[None, :]
-    sbits0 = ((np.arange(16) >> 1) & 1).astype(np.float32)[None, :]
-    return sgn4, psel4, tb4T, sbits0, sbits1
-
-
-@functools.lru_cache(maxsize=4)
-def _tables16(generators):
-    """Radix-16 tables: FOUR trellis steps fused per ACS iteration.
-
-    Over 4 steps every predecessor p in 0..15 reaches every next state
-    ns (the 4 input bits = the 4 LSBs of ns, p's bits all shift out), so
-    the candidate paths into ns are indexed directly by p — and the
-    path-metric selection that radix-2/4 express as a one-hot matmul
-    degenerates into a plain broadcast: c[p*16+ns] = m[p] + bm[p*16+ns].
-    No selection matmul, no f32-HIGHEST pass.
-
-    Tie-breaking: the sequential radix-2 chain resolves every merge
-    toward decision 0 (c1 > c0 strict), which composes to "the
-    lexicographically smallest decision string wins, latest decision
-    most significant". With decisions d1..d4 (d4 latest), the composed
-    index is j = d4*8 + d3*4 + d2*2 + d1 and p = bitrev4(j) — so the
-    kernel ranks tied candidates by rev4(p) and stores j; traceback
-    recovers prev = rev4(j) with an iota compare.
-
-    sgn16 [256, 4N]: row p*16+ns = concat of the 4 per-step sign
-                     vectors along the path p -> ns.
-    rank  [16]:      rev4(p), the tie-break key per candidate row.
-    """
-    signs = trellis_signs(generators)
-    n = signs.shape[-1]
-    rev4 = [int(f"{p:04b}"[::-1], 2) for p in range(16)]
-    sgn16 = np.zeros((256, 4 * n), np.float32)
-    for p in range(16):
-        for ns in range(16):
-            s = p
-            for step in range(4):
-                b = (ns >> (3 - step)) & 1
-                sgn16[p * 16 + ns, step * n:(step + 1) * n] = signs[s, b]
-                s = ((s << 1) | b) & 0xF
-    rank = np.asarray(rev4, np.float32)
-    return sgn16, rank
-
-
-def _make_segmented_kernel16g(n_sym: int, n_out: int, tile_b: int,
-                              boundaries: tuple, group: int):
-    """Grouped-branch-metric radix-16 (int8 only): ONE MXU call computes
-    the branch metrics for `group` consecutive quad-steps (soft
-    pre-laid-out as [T/4G, 4N, G, tile]; the G axis rides the matmul's
-    lane dimension), and the serial ACS loop consumes lane slices —
-    group× fewer MXU dispatches on the latency-bound dependency chain.
-    Decisions are identical to _make_segmented_kernel16's int8 path
-    (same candidate ranking, same packed tie-break)."""
-    assert n_sym % 4 == 0 and all(b % 4 == 0 for b in boundaries)
-    segs = tuple(s // 4 for s in (0,) + tuple(boundaries) + (n_sym,))
-    assert all((segs[i + 1] - segs[i]) % group == 0
-               for i in range(len(segs) - 1)), (segs, group)
-    nb = len(boundaries)
-
-    def kernel(soft_ref, sgn_ref, rm_ref, bits_ref, dec_ref,
-               metric_ref, bstate_ref):
-        neg = jnp.int32(-(2 ** 27))
-        sgn = sgn_ref[:]            # [256, 4N] int8 (x16 prescale)
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        init = jnp.where(row == 0, jnp.int32(0), neg)
-        metric_ref[:] = init
-        rev_row_i = (jnp.bitwise_or(
-            jnp.bitwise_or((row & 1) << 3, (row & 2) << 1),
-            jnp.bitwise_or((row & 4) >> 1, (row & 8) >> 3)))    # [16, tile]
-
-        def acs_group(g, _):
-            symg = soft_ref[pl.ds(g, 1)][0]                 # [4N, G, tile]
-            bmg = jnp.dot(sgn, symg.reshape(4 * n_out, group * tile_b),
-                          preferred_element_type=jnp.int32)  # [256, G*tile]
-            for s in range(group):
-                bm = bmg[:, s * tile_b:(s + 1) * tile_b]
-                m = metric_ref[:]
-                c = (bm.reshape(16, 16, tile_b)
-                     + (m + (15 - rev_row_i))[:, None, :])   # [p, ns, t]
-                best = jnp.max(c, axis=0)                    # [16, tile]
-                dec_ref[pl.ds(g * group + s, 1), :, :] = \
-                    (15 - (best & 15)).astype(jnp.int8)[None]
-                metric_ref[:] = best & -16
-            return 0
-
-        def onehot_best(m):
-            best = jnp.max(m, axis=0, keepdims=True)
-            min_rank = jnp.min(jnp.where(m == best, row, 16), axis=0,
-                               keepdims=True)
-            return (row == min_rank).astype(jnp.float32)
-
-        for k in range(nb + 1):
-            if k > 0:
-                m = metric_ref[:]
-                bstate_ref[k - 1] = onehot_best(m)
-                r = rm_ref[pl.ds(k - 1, 1)]
-                metric_ref[:] = jnp.where(r > 0.0, init, m)
-            jax.lax.fori_loop(segs[k] // group, segs[k + 1] // group,
-                              acs_group, 0)
-
-        onehot = onehot_best(metric_ref[:])
-        rowf = row.astype(jnp.float32)
-        rev_row = rev_row_i.astype(jnp.float32)
-
-        def tb_step(t, onehot):
-            s = jnp.sum(onehot * rowf, axis=0, keepdims=True)   # [1, tile]
-            si = s.astype(jnp.int32)
-            bits4 = jnp.concatenate(
-                [((si >> 3) & 1)[None], ((si >> 2) & 1)[None],
-                 ((si >> 1) & 1)[None], (si & 1)[None]],
-                axis=0).astype(jnp.int8)                         # [4, 1, tile]
-            bits_ref[pl.ds(4 * t, 4), :, :] = bits4
-            decj = dec_ref[pl.ds(t, 1), :, :][0].astype(jnp.float32)
-            jpath = jnp.sum(onehot * decj, axis=0, keepdims=True)
-            return (rev_row == jpath).astype(jnp.float32)
-
-        for k in range(nb, -1, -1):
-            t0, t1 = segs[k], segs[k + 1]
-            onehot = jax.lax.fori_loop(
-                0, t1 - t0, lambda i, oh: tb_step(t1 - 1 - i, oh), onehot)
-            if k > 0:
-                r = rm_ref[pl.ds(k - 1, 1)]
-                onehot = bstate_ref[k - 1] * r + onehot * (1.0 - r)
-
-    return kernel
-
-
-def _make_segmented_kernel16(n_sym: int, n_out: int, tile_b: int,
-                             boundaries: tuple, packed: bool = False):
-    """Radix-16 variant of _make_segmented_kernel4: quarters the serial
-    ACS/traceback lengths AND removes the metric-selection matmul and
-    the traceback matmul entirely (see _tables16). soft input
-    pre-reshaped to [n_sym/4, 4N, tile].
-
-    packed=True (integer soft alphabets only, |value| <= 127): the
-    tie-break rank is packed into the metric's low 4 bits — metrics are
-    stored pre-scaled by 16 (the sign table carries the x16), each
-    candidate row adds 15 - rev4(p), and ONE max then yields both the
-    winning metric and the tie-broken decision: c mod 16 = 15 - rank of
-    the winner, metric = c - (c mod 16). This deletes the second
-    full-candidate-tensor compare+min pass — ~the whole point, since the
-    ACS loop is VPU-bound on [16, 16, tile] passes. Exact: |16*m + 15|
-    <= 16*(2^19 + 288*4*127) + 15 < 2^24, every add an integer.
-
-    int8 soft input (implies packed): the ACS matmul runs s8 x s8 ->
-    s32 (2x the MXU issue rate of bf16, half the soft VMEM/transpose
-    traffic) and metrics stay int32, where the rank unpack is two
-    bitwise ops (& -16 floors toward -inf in two's complement, exactly
-    like the f32 floor)."""
-    assert n_sym % 4 == 0 and all(b % 4 == 0 for b in boundaries)
-    segs = tuple(s // 4 for s in (0,) + tuple(boundaries) + (n_sym,))
-    nb = len(boundaries)
-
-    def kernel(soft_ref, sgn_ref, rm_ref, bits_ref, dec_ref,
-               metric_ref, bstate_ref):
-        int_in = soft_ref.dtype == jnp.int8
-        packed_k = packed or int_in
-        mdt = jnp.int32 if int_in else jnp.float32
-        neg = (mdt(-(2 ** 27)) if int_in else
-               np.float32(-(2 ** 19) * 16.0) if packed_k else _NEG)
-        sgn = sgn_ref[:]            # [256, 4N]
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        init = jnp.where(row == 0, mdt(0), neg)
-        metric_ref[:] = init
-        # rev4 of the row index (traceback prev, packed-mode rank term)
-        rev_row_i = (jnp.bitwise_or(
-            jnp.bitwise_or((row & 1) << 3, (row & 2) << 1),
-            jnp.bitwise_or((row & 4) >> 1, (row & 8) >> 3)))    # [16, tile]
-        rev_row0 = rev_row_i.astype(jnp.float32)
-        if not packed_k:
-            # tie-break rank per candidate row: rev4(p), from a 3-D iota
-            p3 = jax.lax.broadcasted_iota(jnp.int32, (16, 16, tile_b), 0)
-            rank3 = (((p3 & 1) << 3) | ((p3 & 2) << 1)
-                     | ((p3 & 4) >> 1) | ((p3 & 8) >> 3)).astype(jnp.float32)
-
-        def acs_step(t, _):
-            sym4 = soft_ref[pl.ds(t, 1)][0]                     # [4N, tile]
-            bm = jnp.dot(sgn, sym4, preferred_element_type=mdt)
-            m = metric_ref[:]                                   # [16, tile]
-            if int_in:
-                c = (bm.reshape(16, 16, tile_b)
-                     + (m + (15 - rev_row_i))[:, None, :])      # [p, ns, t]
-                best = jnp.max(c, axis=0)                       # [16, tile]
-                dec_ref[pl.ds(t, 1), :, :] = \
-                    (15 - (best & 15)).astype(jnp.int8)[None]
-                metric_ref[:] = best & -16
-                return 0
-            if packed_k:
-                # candidate p carries its metric in bits >=4 and its
-                # tie-break key 15 - rev4(p) in the low 4 bits
-                c = (bm.reshape(16, 16, tile_b)
-                     + (m + (15.0 - rev_row0))[:, None, :])     # [p, ns, t]
-                best = jnp.max(c, axis=0)                       # [16, tile]
-                q = jnp.floor(best * 0.0625) * 16.0
-                dec_ref[pl.ds(t, 1), :, :] = \
-                    (15.0 - (best - q)).astype(jnp.int8)[None]
-                metric_ref[:] = q
-                return 0
-            # candidate p contributes m[p] to all 16 of its rows
-            c = (bm.reshape(16, 16, tile_b) + m[:, None, :])    # [p, ns, t]
-            best = jnp.max(c, axis=0)                           # [16, tile]
-            # lowest composed-decision-index j = rev4(p) wins ties
-            jcand = jnp.where(c == best[None], rank3, 16.0)
-            jwin = jnp.min(jcand, axis=0)                       # [16, tile]
-            dec_ref[pl.ds(t, 1), :, :] = jwin.astype(jnp.int8)[None]
-            metric_ref[:] = best
-            return 0
-
-        def onehot_best(m):
-            best = jnp.max(m, axis=0, keepdims=True)
-            min_rank = jnp.min(jnp.where(m == best, row, 16), axis=0,
-                               keepdims=True)
-            return (row == min_rank).astype(jnp.float32)
-
-        for k in range(nb + 1):
-            if k > 0:
-                m = metric_ref[:]
-                bstate_ref[k - 1] = onehot_best(m)
-                r = rm_ref[pl.ds(k - 1, 1)]
-                metric_ref[:] = jnp.where(r > 0.0, init, m)
-            jax.lax.fori_loop(segs[k], segs[k + 1], acs_step, 0)
-
-        onehot = onehot_best(metric_ref[:])
-        rowf = row.astype(jnp.float32)
-        # rev4 of the row index, for prev = rev4(j) as an iota compare
-        rev_row = rev_row0
-
-        def tb_step(t, onehot):
-            # current state's 4 LSBs are the 4 bits of this fused step
-            s = jnp.sum(onehot * rowf, axis=0, keepdims=True)   # [1, tile]
-            si = s.astype(jnp.int32)
-            bits4 = jnp.concatenate(
-                [((si >> 3) & 1)[None], ((si >> 2) & 1)[None],
-                 ((si >> 1) & 1)[None], (si & 1)[None]],
-                axis=0).astype(jnp.int8)                         # [4, 1, tile]
-            bits_ref[pl.ds(4 * t, 4), :, :] = bits4
-            decj = dec_ref[pl.ds(t, 1), :, :][0].astype(jnp.float32)
-            jpath = jnp.sum(onehot * decj, axis=0, keepdims=True)  # [1, tile]
-            return (rev_row == jpath).astype(jnp.float32)       # prev one-hot
-
-        for k in range(nb, -1, -1):
-            t0, t1 = segs[k], segs[k + 1]
-            onehot = jax.lax.fori_loop(
-                0, t1 - t0, lambda i, oh: tb_step(t1 - 1 - i, oh), onehot)
-            if k > 0:
-                r = rm_ref[pl.ds(k - 1, 1)]
-                onehot = bstate_ref[k - 1] * r + onehot * (1.0 - r)
-
-    return kernel
-
-
-def _make_fused_kernel16(n_sym: int, n_out: int, tile_b: int,
-                         boundaries: tuple, n_seg: int,
-                         batch_major: bool = False, ilp: int = 1):
-    """Radix-16 int8 kernel with the FEC assembly fused as a prologue
-    and the CRC16 checks as an epilogue: the [B, n_sym*N] soft tensor
-    never exists in HBM, and neither do the per-segment CRC matmul
-    inputs — the only HBM traffic per slot is the descrambled sign
-    input, the decoded bits and n_seg ok flags.
-
-    Prologue: soft = pmat [n_sym*N, K] @ x [K, tile] (pmat rows are the
-    one-hot slot-position -> mother-position map, so every product is a
-    plain {0, ±1} copy, exact in s8; kernel row order = plain mother
-    order, which is exactly the [T/4, 4N] quad-step layout flattened).
-
-    Epilogue: crc = crcM [16*n_seg, n_sym] @ bits, parity per row, each
-    segment ok iff all 16 rows match its (affine-adjusted) target —
-    one small MXU pass over the VMEM-resident decoded bits.
-
-    ACS + traceback are the int8 packed path of
-    _make_segmented_kernel16, decisions bit-identical.
-
-    ilp > 1 splits the tile's lanes into `ilp` independent groups and
-    advances ALL of them inside each serial iteration: the ACS loop is
-    latency-bound (each iteration is a short dot -> add -> max -> store
-    dependency chain; measured ~0.25 us regardless of lane width), so
-    interleaving independent chains lets the MXU/VPU pipeline fill —
-    near-linear throughput in ilp until issue bandwidth binds."""
-    assert n_sym % 4 == 0 and all(b % 4 == 0 for b in boundaries)
-    assert tile_b % ilp == 0 and (ilp == 1 or (tile_b // ilp) % 128 == 0)
-    segs = tuple(s // 4 for s in (0,) + tuple(boundaries) + (n_sym,))
-    nb = len(boundaries)
-    H = tile_b // ilp
-
-    def kernel(x_ref, pmat_ref, sgn_ref, rm_ref, crcM_ref, crcT_ref,
-               bits_ref, ok_ref, soft_ref, dec_ref, metric_ref,
-               bstate_ref):
-        # ---- prologue: assembly matmul into VMEM scratch (s8 x s8
-        # with s32 accumulate — Mosaic requires a 32-bit acc — then
-        # narrowed back; every product is a plain {0, ±1} copy).
-        # batch_major feeds x as [tile, K] and contracts with
-        # transpose_rhs inside the MXU, so the host never pays an
-        # int8 [B, K] -> [K, B] transpose ----
-        if batch_major:
-            pre = jax.lax.dot_general(
-                pmat_ref[:], x_ref[:], (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.int32).astype(jnp.int8)
+    def kernel(*refs):
+        if boundaries:
+            soft_ref, rm_ref, bits_ref, dec_ref = refs
         else:
-            pre = jnp.dot(pmat_ref[:], x_ref[:],
-                          preferred_element_type=jnp.int32
-                          ).astype(jnp.int8)
-        # store in the ACS loop's [T/4, 4N, tile] layout (time untiled)
-        # so per-step slices are aligned loads, not sublane relayouts
-        soft_ref[:] = pre.reshape(n_sym // 4, 4 * n_out, tile_b)
+            soft_ref, bits_ref, dec_ref = refs
+        zero = jnp.zeros((rows,), jnp.float32)
+        neg = jnp.full((rows,), _NEG, jnp.float32)
+        init = (zero,) + (neg,) * 15
 
-        neg = jnp.int32(-(2 ** 27))
-        sgn = sgn_ref[:]            # [256, 4N] int8 (x16 prescale)
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        init = jnp.where(row == 0, jnp.int32(0), neg)
-        metric_ref[:] = init
-        rowh = jax.lax.broadcasted_iota(jnp.int32, (16, H), 0)
-        rev_row_i = (jnp.bitwise_or(
-            jnp.bitwise_or((rowh & 1) << 3, (rowh & 2) << 1),
-            jnp.bitwise_or((rowh & 4) >> 1, (rowh & 8) >> 3)))  # [16, H]
+        def acs(t, m):
+            x = [soft_ref[t * n + k, :] for k in range(n)]
+            pm = []
+            for p in pats:
+                acc = None
+                for k, sg in enumerate(p):
+                    if acc is None:
+                        acc = x[k] if sg > 0 else -x[k]
+                    else:
+                        acc = acc + x[k] if sg > 0 else acc - x[k]
+                pm.append(acc)
 
-        def acs_body(t):
-            sym4 = soft_ref[pl.ds(t, 1)][0]                      # [4N, tile]
-            # `ilp` independent lane-group chains per iteration: the
-            # static unroll lets the scheduler overlap their
-            # dot/add/max/store latency chains
-            for g in range(ilp):
-                sl = slice(g * H, (g + 1) * H)
-                bm = jnp.dot(sgn, sym4[:, sl],
-                             preferred_element_type=jnp.int32)
-                m = metric_ref[:, sl]
-                c = (bm.reshape(16, 16, H)
-                     + (m + (15 - rev_row_i))[:, None, :])       # [p, ns, h]
-                best = jnp.max(c, axis=0)                        # [16, H]
-                dec_ref[pl.ds(t, 1), :, sl] = \
-                    (15 - (best & 15)).astype(jnp.int8)[None]
-                metric_ref[:, sl] = best & -16
+            def bm(s, b):
+                i, flip = plan[s, b]
+                return -pm[i] if flip else pm[i]
 
-        def onehot_best(m):
-            best = jnp.max(m, axis=0, keepdims=True)
-            min_rank = jnp.min(jnp.where(m == best, row, 16), axis=0,
-                               keepdims=True)
-            return (row == min_rank).astype(jnp.float32)
+            new, word = [], jnp.zeros((rows,), jnp.int32)
+            for ns in range(16):
+                p0, b = ns >> 1, ns & 1
+                p1 = p0 | 8
+                c0 = m[p0] + bm(p0, b)
+                c1 = m[p1] + bm(p1, b)
+                took = c1 > c0
+                new.append(jnp.where(took, c1, c0))
+                word = word | jnp.where(took, jnp.int32(1 << ns),
+                                        jnp.int32(0))
+            dec_ref[t, :] = word
+            return tuple(new)
 
-        def unroll_of(span):
-            # the serial loops pay a fixed per-iteration bookkeeping
-            # cost comparable to the body's work; unroll as far as the
-            # segment span allows
-            for u in (4, 2, 1):
-                if span % u == 0:
-                    return u
-            return 1
+        m = init
+        restart_best = {}
+        for i, (lo, hi) in enumerate(zip(edges[:-1], edges[1:])):
+            if lo:
+                r = rm_ref[i - 1, :] != 0
+                restart_best[lo] = (r, _best_state(m))
+                m = tuple(jnp.where(r, a, b) for a, b in zip(init, m))
+            m = jax.lax.fori_loop(lo, hi, acs, m)
 
-        for k in range(nb + 1):
-            if k > 0:
-                m = metric_ref[:]
-                bstate_ref[k - 1] = onehot_best(m)
-                r = rm_ref[pl.ds(k - 1, 1)]
-                metric_ref[:] = jnp.where(r > 0.0, init, m)
-            span = segs[k + 1] - segs[k]
-            u = unroll_of(span)
+        def back(j, state, hi):
+            t = hi - 1 - j
+            bits_ref[t, :] = (state & 1).astype(jnp.int8)
+            took = (dec_ref[t, :] >> state) & 1
+            return (state >> 1) | (took << 3)
 
-            def acs_u(i, _, k=k, u=u):
-                t0 = segs[k] + i * u
-                for j in range(u):
-                    acs_body(t0 + j)
-                return 0
-
-            jax.lax.fori_loop(0, span // u, acs_u, 0)
-
-        onehot = onehot_best(metric_ref[:])
-        rowf = rowh.astype(jnp.float32)                          # [16, H]
-        rev_row = rev_row_i.astype(jnp.float32)
-
-        def tb_step(t, onehot):
-            decj_t = dec_ref[pl.ds(t, 1), :, :][0]               # [16, tile]
-            outs = []
-            for g in range(ilp):
-                sl = slice(g * H, (g + 1) * H)
-                oh = onehot[:, sl]
-                s = jnp.sum(oh * rowf, axis=0, keepdims=True)    # [1, H]
-                si = s.astype(jnp.int32)
-                bits4 = jnp.concatenate(
-                    [((si >> 3) & 1)[None], ((si >> 2) & 1)[None],
-                     ((si >> 1) & 1)[None], (si & 1)[None]],
-                    axis=0).astype(jnp.int8)                     # [4, 1, H]
-                bits_ref[pl.ds(4 * t, 4), :, sl] = bits4
-                decj = decj_t[:, sl].astype(jnp.float32)
-                jpath = jnp.sum(oh * decj, axis=0, keepdims=True)
-                outs.append((rev_row == jpath).astype(jnp.float32))
-            return (outs[0] if ilp == 1
-                    else jnp.concatenate(outs, axis=1))
-
-        for k in range(nb, -1, -1):
-            t0, t1 = segs[k], segs[k + 1]
-            span = t1 - t0
-            u = unroll_of(span)
-
-            def tb_u(i, oh, t1=t1, u=u):
-                for j in range(u):
-                    oh = tb_step(t1 - 1 - i * u - j, oh)
-                return oh
-
-            onehot = jax.lax.fori_loop(0, span // u, tb_u, onehot)
-            if k > 0:
-                r = rm_ref[pl.ds(k - 1, 1)]
-                onehot = bstate_ref[k - 1] * r + onehot * (1.0 - r)
-
-        # ---- epilogue: per-segment CRC16 checks ----
-        bitsv = bits_ref[:, 0, :]                     # [n_sym, tile] int8
-        crc = jnp.dot(crcM_ref[:], bitsv,
-                      preferred_element_type=jnp.int32)  # [16*n_seg, tile]
-        mism = (crc & 1) ^ crcT_ref[:].astype(jnp.int32)
-        bad = jnp.sum(mism.reshape(n_seg, 16, tile_b), axis=1)
-        # 1 - min(bad, 1) instead of (bad == 0): Mosaic rejects the
-        # narrow [n_seg, tile] i1 compare's relayout
-        ok_ref[:] = (1 - jnp.minimum(bad, 1)).astype(jnp.int8)
+        state = _best_state(m)
+        for lo, hi in zip(edges[-2::-1], edges[:0:-1]):
+            state = jax.lax.fori_loop(0, hi - lo,
+                                      functools.partial(back, hi=hi), state)
+            if lo:
+                r, best = restart_best[lo]
+                state = jnp.where(r, best, state)
 
     return kernel
 
 
-@functools.partial(jax.jit, static_argnames=("n_sym", "boundaries",
-                                             "crc_segs", "generators",
-                                             "tile_b", "interpret",
-                                             "batch_major",
-                                             "serialize_grid", "ilp"))
-def decode_assembled_pallas(xT, rmask, pmat, n_sym: int, boundaries: tuple,
-                            crc_segs: tuple,
-                            generators=CONV_GENERATORS_CCH,
-                            tile_b: int = 1024, interpret: bool = False,
-                            batch_major: bool = False,
-                            serialize_grid: bool = False, ilp: int = 1):
-    """Assembly + segmented Viterbi + CRC16 in ONE kernel pass.
+@functools.partial(jax.jit, static_argnames=(
+    "n_sym", "generators", "boundaries", "block_rows", "interpret"))
+def decode_pallas(soft, n_sym: int, generators, rmask=None,
+                  boundaries: tuple = (), block_rows: int = BLOCK_ROWS,
+                  interpret: bool = False):
+    """Soft mother bits [B, >= n_sym*N] -> hard bits [B, n_sym] int8.
 
-    xT [K, B] int8: descrambled sign values ({0, ±1}), batch in lanes.
-    pmat [n_sym*N, K] int8 {0, 1}: one-hot slot->mother map (soft =
-    pmat @ xT), rows in plain mother-bit order.
-    rmask [B, len(boundaries)]: per-lane trellis restarts as in
-    decode_segmented_pallas.
-    crc_segs: tuple of (offset, length) bit ranges of the decoded
-    output to CRC16-check (length INCLUDES the 16 CRC bits).
-
-    Returns (bits [B, n_sym] int8, ok [B, len(crc_segs)] int8) with
-    bits bit-identical to decode_segmented_pallas on pmat-assembled
-    soft input and ok equal to ops.crc.crc16_check per segment.
-    batch_major=True takes x as [B, K] instead (the MXU contracts with
-    transpose_rhs, so no host-side int8 transpose is needed)."""
-    from tetra_tpu.ops import crc as crc_mod
+    rmask [B, len(boundaries)] (nonzero = restart the trellis at that
+    boundary), required when `boundaries` is non-empty. Rows are padded
+    to a multiple of `block_rows` (a power of two)."""
     generators = tuple(map(tuple, generators))
-    n_out = len(generators)
-    nb = len(boundaries)
-    n_seg = len(crc_segs)
-    if batch_major:
-        B, K = xT.shape
-    else:
-        K, B = xT.shape
-    assert xT.dtype == jnp.int8 and n_sym % 4 == 0
-    assert all(b % 4 == 0 for b in boundaries)
-    assert pmat.shape == (n_sym * n_out, K)
-
-    # stacked CRC check matrices + affine targets: segment k ok iff
-    # (bits @ M)&1 == C ^ bits16(TETRA_CRC_OK) over its 16 rows
-    crcM = np.zeros((16 * n_seg, n_sym), np.int8)
-    crcT = np.zeros((16 * n_seg, 1), np.int8)
-    okbits = [(crc_mod.TETRA_CRC_OK >> (15 - i)) & 1 for i in range(16)]
-    for s, (off, ln) in enumerate(crc_segs):
-        M, Cc = crc_mod.crc16_matrix(ln)
-        crcM[16 * s:16 * (s + 1), off:off + ln] = M.T
-        for i in range(16):
-            crcT[16 * s + i, 0] = Cc[i] ^ okbits[i]
-
-    tile = min(tile_b, B)
-    pad = (-B) % tile
-    if pad:
-        xT = jnp.pad(xT, ((0, pad), (0, 0)) if batch_major
-                     else ((0, 0), (0, pad)))
-        rmask = jnp.pad(rmask, ((0, pad), (0, 0)))
-    Bp = xT.shape[0] if batch_major else xT.shape[1]
-    rm_t = rmask.astype(jnp.float32).reshape(Bp, nb).T if nb else \
-        jnp.zeros((1, Bp), jnp.float32)
-
-    sgn16, _ = _tables16(generators)
-    kernel = _make_fused_kernel16(n_sym, n_out, tile, tuple(boundaries),
-                                  n_seg, batch_major=batch_major,
-                                  ilp=ilp if (tile // ilp) % 128 == 0
-                                  and tile % ilp == 0 else 1)
-    x_spec = (pl.BlockSpec((tile, K), lambda i: (i, 0),
-                           memory_space=pltpu.VMEM) if batch_major else
-              pl.BlockSpec((K, tile), lambda i: (0, i),
-                           memory_space=pltpu.VMEM))
-    bits, ok = pl.pallas_call(
-        kernel,
-        grid=(Bp // tile,),
-        in_specs=[
-            x_spec,
-            pl.BlockSpec((n_sym * n_out, K), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((256, 4 * n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((max(nb, 1), tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16 * n_seg, n_sym), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16 * n_seg, 1), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((n_sym, 1, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_seg, tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_sym, 1, Bp), jnp.int8),
-            jax.ShapeDtypeStruct((n_seg, Bp), jnp.int8),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((n_sym // 4, 4 * n_out, tile), jnp.int8),
-            pltpu.VMEM((n_sym // 4, 16, tile), jnp.int8),
-            pltpu.VMEM((16, tile), jnp.int32),
-            pltpu.VMEM((max(nb, 1), 16, tile), jnp.float32),
-        ],
-        # serialize_grid trades the grid's input/output double
-        # buffering (DMA/compute overlap, ~1 us/tile here) for the
-        # VMEM headroom a 2048-lane tile needs — the wider tile halves
-        # the serial ACS iterations per slot, the dominant cost
-        compiler_params=(pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)) if serialize_grid
-            else None),
-        interpret=interpret,
-    )(xT, jnp.asarray(pmat, jnp.int8),
-      jnp.asarray(sgn16 * 16.0).astype(jnp.int8), rm_t,
-      jnp.asarray(crcM), jnp.asarray(crcT))
-    return bits[:, 0, :].T[:B], ok.T[:B]
-
-
-def _make_segmented_kernel4(n_sym: int, n_out: int, tile_b: int,
-                            boundaries: tuple):
-    """Radix-4 variant of _make_segmented_kernel: halves the serial ACS
-    and traceback lengths (the throughput limiter — each iteration is a
-    handful of small VMEM ops, so the loop is issue-bound, not
-    FLOP-bound). Requires even n_sym and even boundaries (all TETRA
-    block layouts satisfy this). soft input pre-reshaped to
-    [n_sym/2, 2N, tile]."""
-    assert n_sym % 2 == 0 and all(b % 2 == 0 for b in boundaries)
-    segs = tuple(s // 2 for s in (0,) + tuple(boundaries) + (n_sym,))
-    nb = len(boundaries)
-    t2 = n_sym // 2
-
-    def kernel(soft_ref, sgn_ref, psel_ref, tbT_ref, sb0_ref, sb1_ref,
-               rm_ref, bits_ref, dec_ref, metric_ref, bstate_ref):
-        sgn = sgn_ref[:]            # [64, 2N]
-        psel = psel_ref[:]          # [64, 16]
-        tbT = tbT_ref[:]            # [16, 64]
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        init = jnp.where(row == 0, 0.0, _NEG)
-        metric_ref[:] = init
-
-        def acs_step(t, _):
-            sym2 = soft_ref[pl.ds(t, 1)][0]                     # [2N, tile]
-            bm = jnp.dot(sgn, sym2, preferred_element_type=jnp.float32)
-            m = metric_ref[:]
-            c = jnp.dot(psel, m, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST) + bm
-            c0, c1, c2, c3 = c[:16], c[16:32], c[32:48], c[48:64]
-            e01 = c1 > c0
-            m01 = jnp.maximum(c0, c1)
-            e23 = c3 > c2
-            m23 = jnp.maximum(c2, c3)
-            e = m23 > m01
-            j = jnp.where(e, jnp.where(e23, 3, 2), jnp.where(e01, 1, 0))
-            dec_ref[pl.ds(t, 1), :, :] = j.astype(jnp.int8)[None]
-            metric_ref[:] = jnp.maximum(m01, m23)
-            return 0
-
-        def onehot_best(m):
-            best = jnp.max(m, axis=0, keepdims=True)
-            min_rank = jnp.min(jnp.where(m == best, row, 16), axis=0,
-                               keepdims=True)
-            return (row == min_rank).astype(jnp.float32)
-
-        for k in range(nb + 1):
-            if k > 0:
-                m = metric_ref[:]
-                bstate_ref[k - 1] = onehot_best(m)
-                r = rm_ref[pl.ds(k - 1, 1)]
-                metric_ref[:] = m * (1.0 - r) + init * r
-            jax.lax.fori_loop(segs[k], segs[k + 1], acs_step, 0)
-
-        onehot = onehot_best(metric_ref[:])
-
-        def tb_step(t, onehot):
-            bit0 = jnp.dot(sb0_ref[:], onehot,
-                           preferred_element_type=jnp.float32)   # [1, tile]
-            bit1 = jnp.dot(sb1_ref[:], onehot,
-                           preferred_element_type=jnp.float32)
-            bits_ref[pl.ds(2 * t, 2), :, :] = jnp.concatenate(
-                [bit0[None], bit1[None]], axis=0).astype(jnp.int8)
-            decj = dec_ref[pl.ds(t, 1), :, :][0].astype(jnp.float32)
-            jpath = jnp.sum(onehot * decj, axis=0, keepdims=True)  # [1, tile]
-            selcat = jnp.concatenate(
-                [onehot * (jpath == float(jj)) for jj in range(4)], axis=0)
-            return jnp.dot(tbT, selcat, preferred_element_type=jnp.float32)
-
-        for k in range(nb, -1, -1):
-            t0, t1 = segs[k], segs[k + 1]
-            onehot = jax.lax.fori_loop(
-                0, t1 - t0, lambda i, oh: tb_step(t1 - 1 - i, oh), onehot)
-            if k > 0:
-                r = rm_ref[pl.ds(k - 1, 1)]
-                onehot = bstate_ref[k - 1] * r + onehot * (1.0 - r)
-
-    return kernel
-
-
-def _make_segmented_kernel(n_sym: int, n_out: int, tile_b: int,
-                           boundaries: tuple):
-    """Like _make_kernel but the trellis can restart (per lane) at the
-    static step positions in `boundaries`: where the per-lane reset mask
-    is 1 the path metric collapses back to the one-hot zero state and
-    the traceback later jumps to the *recorded* best end state of the
-    segment that just finished — making one kernel pass bit-identical
-    to independently decoding each segment. Used to decode differently
-    segmented burst kinds (SYNC: 80+144 steps, NDB: 144+144, SCH/F: 288)
-    in ONE batched pass (see lmac.fused)."""
-    segs = (0,) + tuple(boundaries) + (n_sym,)
-    nb = len(boundaries)
-
-    # rm_ref: [max(nb,1), tile] f32 reset masks, one row per boundary
-    def kernel(soft_ref, sgn_ref, psel_ref, tbT_ref, sbits_ref, rm_ref,
-               bits_ref, dec_ref, metric_ref, bstate_ref):
-        sgn = sgn_ref[:]
-        psel = psel_ref[:]
-        tbT = tbT_ref[:]
-
-        row = jax.lax.broadcasted_iota(jnp.int32, (16, tile_b), 0)
-        init = jnp.where(row == 0, 0.0, _NEG)
-        metric_ref[:] = init
-
-        def acs_step(t, _):
-            sym = soft_ref[pl.ds(t, 1)][0]
-            bm = jnp.dot(sgn, sym, preferred_element_type=jnp.float32)
-            m = metric_ref[:]
-            c = jnp.dot(psel, m, preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST) + bm
-            c0, c1 = c[:16], c[16:]
-            dec_ref[pl.ds(t, 1), :, :] = (c1 > c0).astype(jnp.int8)[None]
-            metric_ref[:] = jnp.maximum(c0, c1)
-            return 0
-
-        def onehot_best(m):
-            best = jnp.max(m, axis=0, keepdims=True)
-            min_rank = jnp.min(jnp.where(m == best, row, 16), axis=0,
-                               keepdims=True)
-            return (row == min_rank).astype(jnp.float32)
-
-        for k in range(nb + 1):
-            if k > 0:  # segment boundary: record end state, masked reset
-                m = metric_ref[:]
-                bstate_ref[k - 1] = onehot_best(m)
-                r = rm_ref[pl.ds(k - 1, 1)]          # [1, tile]
-                metric_ref[:] = m * (1.0 - r) + init * r
-            jax.lax.fori_loop(segs[k], segs[k + 1], acs_step, 0)
-
-        onehot = onehot_best(metric_ref[:])
-
-        def tb_step(t, onehot):
-            bit = jnp.dot(sbits_ref[:], onehot,
-                          preferred_element_type=jnp.float32)
-            bits_ref[pl.ds(t, 1), :, :] = bit.astype(jnp.int8)[None]
-            took = dec_ref[pl.ds(t, 1), :, :][0].astype(jnp.float32)
-            sel1 = onehot * took
-            sel0 = onehot - sel1
-            selcat = jnp.concatenate([sel0, sel1], axis=0)
-            return jnp.dot(tbT, selcat, preferred_element_type=jnp.float32)
-
-        for k in range(nb, -1, -1):
-            t0, t1 = segs[k], segs[k + 1]
-            onehot = jax.lax.fori_loop(
-                0, t1 - t0, lambda i, oh: tb_step(t1 - 1 - i, oh), onehot)
-            if k > 0:  # cross the boundary: jump to the recorded end state
-                r = rm_ref[pl.ds(k - 1, 1)]
-                onehot = bstate_ref[k - 1] * r + onehot * (1.0 - r)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("n_sym", "boundaries",
-                                             "generators", "tile_b",
-                                             "interpret", "radix", "group"))
-def decode_segmented_pallas(soft, rmask, n_sym: int, boundaries: tuple,
-                            generators=CONV_GENERATORS_CCH,
-                            tile_b: int = 1024, interpret: bool = False,
-                            radix: int = 16, group: int = 1):
-    """Segmented decode: soft [B, >= n_sym*N] + per-lane reset masks
-    rmask [B, len(boundaries)] (1.0 = trellis restarts at that boundary)
-    -> hard bits [B, n_sym]. Where rmask is 1 at boundary t, bits [0:t)
-    and [t:...) are bit-identical to two independent decode_pallas calls
-    on the corresponding soft segments. radix=16/4 fuses four/two
-    trellis steps per serial iteration (bit-exact; auto-falls back
-    16 -> 4 -> 2 on layouts the higher radix doesn't divide)."""
-    generators = tuple(map(tuple, generators))
-    n_out = len(generators)
-    nb = len(boundaries)
+    n = len(generators)
     B = soft.shape[0]
-    use_r16 = (radix >= 16 and n_sym % 4 == 0
-               and all(b % 4 == 0 for b in boundaries))
-    use_r4 = (not use_r16 and radix >= 4 and n_sym % 2 == 0
-              and all(b % 2 == 0 for b in boundaries))
-    # int8 soft ({0, ±1} from the fused assembly's s8 matmul) feeds the
-    # radix-16 kernel natively: s8 x s8 -> s32 ACS matmul at 2x the bf16
-    # MXU rate, half the transpose/VMEM traffic, int32 metrics. bf16
-    # inputs pass through untouched (the hard chain's ±127/0 alphabet is
-    # bf16-exact); branch metrics are scale-invariant across the integer
-    # alphabets so decisions are identical. Any other dtype (arbitrary
-    # soft amplitudes) promotes to f32.
-    sdt = (jnp.int8 if (soft.dtype == jnp.int8 and use_r16) else
-           jnp.bfloat16 if soft.dtype in (jnp.bfloat16, jnp.int8)
-           else jnp.float32)
-    soft = soft[:, : n_sym * n_out].astype(sdt)
-    rmask = rmask.astype(jnp.float32).reshape(B, nb)
-    tile = min(tile_b, B)
-    pad = (-B) % tile
-    if pad:
-        soft = jnp.pad(soft, ((0, pad), (0, 0)))
-        rmask = jnp.pad(rmask, ((0, pad), (0, 0)))
-    Bp = soft.shape[0]
-    rm_t = rmask.T  # [nb, Bp]
-
-    qsegs = [s // 4 for s in (0,) + tuple(boundaries) + (n_sym,)]
-    use_g = (use_r16 and group > 1 and sdt == jnp.int8
-             and all((qsegs[i + 1] - qsegs[i]) % group == 0
-                     for i in range(len(qsegs) - 1)))
-    if use_g:
-        sgn16, _ = _tables16(generators)
-        # [T/4G, 4N, G, B]: `group` consecutive quad-steps share one
-        # branch-metric matmul (the G axis rides the lane dimension)
-        soft_tm = jnp.transpose(
-            soft.reshape(Bp, n_sym // (4 * group), group, 4 * n_out),
-            (1, 3, 2, 0))
-        kernel = _make_segmented_kernel16g(n_sym, n_out, tile,
-                                           tuple(boundaries), group)
-        in_specs = [
-            pl.BlockSpec((n_sym // (4 * group), 4 * n_out, group, tile),
-                         lambda i: (0, 0, 0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((256, 4 * n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((max(nb, 1), tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ]
-        consts = (jnp.asarray(sgn16 * 16.0).astype(sdt),)
-        dec_scratch = pltpu.VMEM((n_sym // 4, 16, tile), jnp.int8)
-    elif use_r16:
-        sgn16, rank = _tables16(generators)
-        # packed tie-break needs integer metrics: guaranteed by the
-        # hard chains' int8/bf16 alphabets (see sdt above); f32 inputs
-        # carry arbitrary soft amplitudes and keep the compare+min
-        # tie-break
-        packed = sdt != jnp.float32
-        # [T/4, 4N, B]: four consecutive symbols per row
-        soft_tm = jnp.transpose(
-            soft.reshape(Bp, n_sym // 4, 4 * n_out), (1, 2, 0))
-        kernel = _make_segmented_kernel16(n_sym, n_out, tile,
-                                          tuple(boundaries), packed=packed)
-        in_specs = [
-            pl.BlockSpec((n_sym // 4, 4 * n_out, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((256, 4 * n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((max(nb, 1), tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ]
-        # packed mode pre-scales metrics by 16 through the sign table
-        # (±16 fits int8 exactly)
-        consts = (jnp.asarray(sgn16 * (16.0 if packed else 1.0)).astype(sdt),)
-        dec_scratch = pltpu.VMEM((n_sym // 4, 16, tile), jnp.int8)
-    elif use_r4:
-        sgn, psel, tbT, sb0, sb1 = _tables4(generators)
-        # [T/2, 2N, B]: two consecutive symbols per row
-        soft_tm = jnp.transpose(
-            soft.reshape(Bp, n_sym // 2, 2 * n_out), (1, 2, 0))
-        kernel = _make_segmented_kernel4(n_sym, n_out, tile,
-                                         tuple(boundaries))
-        in_specs = [
-            pl.BlockSpec((n_sym // 2, 2 * n_out, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 2 * n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((64, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16, 64), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((max(nb, 1), tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ]
-        consts = (jnp.asarray(sgn).astype(sdt), jnp.asarray(psel),
-                  jnp.asarray(tbT), jnp.asarray(sb0), jnp.asarray(sb1))
-        dec_scratch = pltpu.VMEM((n_sym // 2, 16, tile), jnp.int8)
-    else:
-        sgn, psel, tbT, sbits = _tables(generators)
-        soft_tm = jnp.transpose(soft.reshape(Bp, n_sym, n_out), (1, 2, 0))
-        kernel = _make_segmented_kernel(n_sym, n_out, tile,
-                                        tuple(boundaries))
-        in_specs = [
-            pl.BlockSpec((n_sym, n_out, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16, 32), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((max(nb, 1), tile), lambda i: (0, i),
-                         memory_space=pltpu.VMEM),
-        ]
-        consts = (jnp.asarray(sgn).astype(sdt), jnp.asarray(psel),
-                  jnp.asarray(tbT), jnp.asarray(sbits))
-        dec_scratch = pltpu.VMEM((n_sym, 16, tile), jnp.int8)
-
-    out = pl.pallas_call(
-        kernel,
-        grid=(Bp // tile,),
+    rows = block_rows
+    Bp = -(-B // rows) * rows
+    # time-major, row-padded: one coalesced [R] load per (step, output)
+    soft_t = jnp.pad(soft[:, : n_sym * n].astype(jnp.float32),
+                     ((0, Bp - B), (0, 0))).T
+    args = [soft_t]
+    in_specs = [pl.BlockSpec((n_sym * n, rows), lambda i: (0, i))]
+    if boundaries:
+        rm = jnp.pad(jnp.asarray(rmask).astype(jnp.int32),
+                     ((0, Bp - B), (0, 0))).T
+        args.append(rm)
+        in_specs.append(pl.BlockSpec((len(boundaries), rows),
+                                     lambda i: (0, i)))
+    bits, _ = pl.pallas_call(
+        _make_kernel(n_sym, generators, tuple(boundaries), rows),
+        grid=(Bp // rows,),
         in_specs=in_specs,
-        out_specs=pl.BlockSpec((n_sym, 1, tile), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_sym, 1, Bp), jnp.int8),
-        scratch_shapes=[
-            dec_scratch,
-            pltpu.VMEM((16, tile),
-                       jnp.int32 if sdt == jnp.int8 else jnp.float32),
-            pltpu.VMEM((max(nb, 1), 16, tile), jnp.float32),
-        ],
+        out_specs=[pl.BlockSpec((n_sym, rows), lambda i: (0, i)),
+                   pl.BlockSpec((n_sym, rows), lambda i: (0, i))],
+        out_shape=[jax.ShapeDtypeStruct((n_sym, Bp), jnp.int8),
+                   jax.ShapeDtypeStruct((n_sym, Bp), jnp.int32)],
+        compiler_params=plgpu.CompilerParams(num_warps=max(rows // 32, 1),
+                                             num_stages=1),
         interpret=interpret,
-    )(soft_tm, *consts,
-      rm_t if nb else jnp.zeros((1, Bp), jnp.float32))
-    return out[:, 0, :].T[:B]
-
-
-@functools.partial(jax.jit, static_argnames=("n_sym", "generators", "tile_b", "interpret"))
-def decode_pallas(soft, n_sym: int, generators=CONV_GENERATORS_CCH,
-                  tile_b: int | None = None, interpret: bool = False):
-    """Decode soft mother bits [B, >= n_sym*N] -> hard bits [B, n_sym].
-
-    Drop-in replacement for viterbi.decode on 2-D batches. Bit-exact
-    against the scan version for the pipeline's quantised soft alphabet
-    (±127/0); on arbitrary float inputs near-ties may resolve
-    differently (summation order).
-    """
-    if tile_b is None:
-        # int8 soft halves the kernel's VMEM footprint: a 2048-lane
-        # tile fits and amortises per-tile fixed cost (lmac.fused picks
-        # the same split for the kind-compacted path)
-        tile_b = 2048 if soft.dtype == jnp.int8 else 1024
-    if n_sym % 2 == 0:  # radix-4 path: half the serial iterations
-        return decode_segmented_pallas(
-            soft, jnp.zeros((soft.shape[0], 0), jnp.float32), n_sym, (),
-            generators, tile_b, interpret)
-    generators = tuple(map(tuple, generators))
-    n_out = len(generators)
-    B = soft.shape[0]
-    soft = soft[:, : n_sym * n_out].astype(jnp.float32)
-    tile = min(tile_b, B)
-    pad = (-B) % tile
-    if pad:
-        soft = jnp.pad(soft, ((0, pad), (0, 0)))
-    Bp = soft.shape[0]
-    # [n_sym, N, B]: batch in lanes, outputs in sublanes, time untiled
-    soft_tm = jnp.transpose(soft.reshape(Bp, n_sym, n_out), (1, 2, 0))
-
-    sgn, psel, tbT, sbits = _tables(generators)
-    kernel = _make_kernel(n_sym, n_out, tile)
-    out = pl.pallas_call(
-        kernel,
-        grid=(Bp // tile,),
-        in_specs=[
-            pl.BlockSpec((n_sym, n_out, tile), lambda i: (0, 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, n_out), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((32, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((16, 32), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 16), lambda i: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n_sym, 1, tile), lambda i: (0, 0, i),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n_sym, 1, Bp), jnp.int8),
-        scratch_shapes=[
-            pltpu.VMEM((n_sym, 16, tile), jnp.int8),
-            pltpu.VMEM((16, tile), jnp.float32),
-        ],
-        interpret=interpret,
-    )(soft_tm, jnp.asarray(sgn), jnp.asarray(psel), jnp.asarray(tbT),
-      jnp.asarray(sbits))
-    return out[:, 0, :].T[:B]
+        name="viterbi16",
+    )(*args)
+    return bits.T[:B]

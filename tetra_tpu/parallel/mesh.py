@@ -40,8 +40,8 @@ def make_mesh(devices=None, axis_name: str = "carrier") -> Mesh:
 def make_mesh_2d(devices=None, hosts: int = 2,
                  axis_names: tuple = ("host", "chip")) -> Mesh:
     """2-D (host, chip) mesh: the ingest/time axis shards over hosts
-    (halos ride DCN), carriers shard over each host's chips (ICI) —
-    the BASELINE multi-host topology (SURVEY.md §7.2 step 6)."""
+    (halos cross the inter-host network), carriers shard over each
+    host's devices (SURVEY.md §7.2 step 6)."""
     devices = devices if devices is not None else jax.devices()
     d = np.asarray(devices)
     assert len(d) % hosts == 0, (len(d), hosts)
@@ -137,7 +137,7 @@ def sharded_locked_step_2d(mesh: Mesh, sps: int = 2,
 
     Exactness vs the unsharded chain: the RRC FIR and the differential
     lag need (ntaps//2 + sps) left / (ntaps-1-ntaps//2) right context,
-    fetched from time-neighbours via ppermute over the host (DCN) axis;
+    fetched from time-neighbours via ppermute over the host axis;
     stream-edge shards substitute the zero context the unsharded demod
     uses. The per-chunk timing metric becomes a psum over the host axis
     (an f32 reduction reorder — argmax ties could in principle flip on

@@ -4,7 +4,7 @@ Reference behaviour: src/phy/tetra_burst.c — continuous-downlink burst
 builders (9.4.4.2.5/2.6), field-offset splitters, and the sequential
 22-bit-window training-sequence scanner.
 
-TPU design: burst build/split are static slice/concat maps. The
+Design: burst build/split are static slice/concat maps. The
 training-sequence search is a batched matched-filter correlation: slide
 each ±1-mapped template over the bit stream with one small matmul per
 template length and compare against the exact-match score; argmin over
@@ -148,7 +148,7 @@ def _correlate_left(x, tmpl):
     kernel = jnp.asarray(np.asarray(tmpl, np.float32)).reshape(1, 1, n)
     out = jax.lax.conv_general_dilated(
         x.reshape(-1, 1, L), kernel, window_strides=(1,),
-        padding=[(0, n - 1)])
+        padding=[(0, n - 1)], precision=jax.lax.Precision.HIGHEST)
     return out[:, 0, :].reshape(*batch, L)
 
 

@@ -5,7 +5,7 @@ frequency-translating FIR + resampler in front of the DQPSK demod
 (reference src/demod/osmosdr-tetra_demod_fft.py:64-96,
 telive_1ch_simple_gr310_udp.py). Multi-carrier = multi-process.
 
-TPU design: all carriers are extracted from the same wideband tensor in
+Design: all carriers are extracted from the same wideband tensor in
 one batched program — mix with a bank of complex oscillators
 [C, T], low-pass filter, and polyphase-resample to the demod rate
 (36 kHz, sps=2) with precomputed per-output gather indices + a P-phase
@@ -81,7 +81,7 @@ def _resample_block_plan(n_in: int, fs: float, out_rate: float,
     fs/out_rate = L/M: the interpolation phase pattern repeats every M
     outputs, so output block q (M samples) is one [width, M] matmul
     against input window [q·L + bmin, q·L + bmin + width) — a ~1.3x
-    banded gather + an MXU matmul instead of the generic path's 8x
+    banded gather + a dense matmul instead of the generic path's 8x
     window materialisation. Coefficients are IDENTICAL to
     _resample_plan (same 32-phase quantised bank), so results match the
     generic path. Returns (W [width, M], bmin, width, L, M, n_out,
@@ -141,33 +141,8 @@ def _resample_ri_one(x, n_in: int, fs: float, out_rate: float,
     gather = jnp.asarray(base)[:, None] + jnp.arange(ntp)[None, :]
     gather = jnp.clip(gather, 0, n_in - 1)
     coefs = jnp.asarray(bank)[jnp.asarray(phase)].astype(jnp.float32)
-    return jnp.einsum("...nw,nw->...n", x[..., gather], coefs)
-
-
-def _resample_rows_ri(x, n_in: int, fs: float, out_rate: float,
-                      skew: float = 0.0):
-    """Polyphase resample over the ROW axis of time-major [M, C] data
-    (the fused PFB kernel's natural layout): same block plan and
-    coefficients as _resample_ri_one, but the window gather becomes
-    contiguous row-block slices and the per-channel transpose moves to
-    AFTER decimation (36 kHz rate instead of the 50 kHz channel rate).
-    Requires a rational fs/out_rate (always true for the PFB path)."""
-    plan = _resample_block_plan(n_in, fs, out_rate, skew=skew)
-    assert plan is not None, "row resampler requires a rational ratio"
-    W, bmin, width, L, M, n_out, pad_l = plan
-    if n_out == 0:
-        return x[:0]
-    nq = -(-n_out // M)
-    need = pad_l + (nq - 1) * L + bmin + width
-    pad_r = max(need - pad_l - n_in, 0)
-    xp = jnp.pad(x, ((pad_l, pad_r), (0, 0)), mode="edge")
-    idx = ((jnp.arange(nq) * L)[:, None] + (pad_l + bmin)
-           + jnp.arange(width)[None, :])                    # [nq, width]
-    blocks = xp[idx]                                        # [nq, w, C]
-    out = jnp.einsum("qwc,wr->qrc", blocks, jnp.asarray(W),
-                     preferred_element_type=jnp.float32,
-                     precision=jax.lax.Precision.HIGHEST)
-    return out.reshape(nq * M, x.shape[-1])[:n_out]
+    return jnp.einsum("...nw,nw->...n", x[..., gather], coefs,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 @functools.partial(jax.jit, static_argnames=("fs", "out_rate", "ntaps"))
@@ -176,8 +151,8 @@ def channelize_ri(re, im, offsets_hz, fs: float, out_rate: float = DEMOD_RATE,
     """Planar wideband channelizer: float32 [T] planes -> [C, n_out] planes.
 
     Same math as `channelize` but with all complex arithmetic expressed
-    on real/imag planes (TPU transport + VPU friendly): oscillator-bank
-    mix, low-pass FIR per plane, polyphase resample per plane.
+    on planar real/imag arrays: oscillator-bank mix, low-pass FIR per
+    plane, polyphase resample per plane.
     Returns (out_re, out_im).
 
     base: absolute sample index of re[0] in a longer stream. Streaming

@@ -5,7 +5,7 @@ mpsk_receiver with Costas + Mueller&Müller feedback loops ->
 diff_phasor -> arg -> rescale) and src/float_to_bits.c (float phase
 symbols -> hard dibits, optional one-pole pseudo-AFC).
 
-TPU design (SURVEY.md §7.1): feedback loops don't vectorise, so the
+Design (SURVEY.md §7.1): feedback loops don't vectorise, so the
 demodulator is feed-forward — matched RRC filter, differential phasor
 over one-symbol lag, per-chunk timing-phase selection by the pi/4-DQPSK
 decision metric (|sin 2θ| is maximal at the optimum sampling instant),
@@ -96,7 +96,8 @@ def _fir_complex(x, taps):
     kernel = taps[::-1].reshape(1, 1, ntaps).astype(jnp.float32)
     out = jax.lax.conv_general_dilated(
         stacked.astype(jnp.float32), kernel, window_strides=(1,),
-        padding=[(pad, ntaps - 1 - pad)])
+        padding=[(pad, ntaps - 1 - pad)],
+        precision=jax.lax.Precision.HIGHEST)
     n = int(np.prod(batch)) if batch else 1
     re, im = out[:n, 0, :], out[n:, 0, :]
     return (re + 1j * im).reshape(*batch, T)
@@ -116,7 +117,7 @@ def _band_matrix(ntaps: int, block: int, taps_key) -> np.ndarray:
 
 def _fir_real(x, taps, block: int = 128):
     """Batched real FIR [..., T], same-length output, as an overlap-save
-    banded matmul so the MACs land on the MXU instead of the VPU.
+    banded matmul (dense GEMMs instead of a long scalar FIR loop).
 
     `taps` must be a host numpy array (it parameterises the constant
     band matrix)."""
@@ -134,7 +135,8 @@ def _fir_real(x, taps, block: int = 128):
     frames = x2[..., idx]                                    # [..., nblk, blk+K-1]
     band = jnp.asarray(_band_matrix(ntaps, block, tuple(taps.tolist())))
     y = jnp.einsum("...nk,ko->...no", frames, band,
-                   preferred_element_type=jnp.float32)
+                   preferred_element_type=jnp.float32,
+                   precision=jax.lax.Precision.HIGHEST)
     return y.reshape(*batch, Tp)[..., :T]
 
 
@@ -142,9 +144,7 @@ def _fir_real(x, taps, block: int = 128):
 def demodulate_ri(re, im, sps: int = 2, est_cfo: bool = True):
     """Real/imag-plane demodulator core [..., T] f32 each -> symbols.
 
-    Complex arithmetic expressed on float planes: some TPU transports
-    and backends don't handle complex64, and the VPU prefers planar
-    float anyway.
+    Complex arithmetic expressed on planar float re/im arrays.
     """
     taps = rrc_taps(sps)
     fr = _fir_real(re, taps)
@@ -244,8 +244,8 @@ def demodulate_hard_ri(re, im, sps: int = 2, os: int = 1):
     the right phase vs ~0.001 at the wrong one) — os=4 bounds the
     sampling error at T/16, the same trade as _slotwise_phasors. Use
     os=4 wherever upstream resampling leaves the symbol clock at an
-    arbitrary offset (the wideband paths); os=1 is bit-compatible with
-    the Pallas kernel (demod_pallas) for phase-aligned steady streams.
+    arbitrary offset (the wideband paths); os=1 suits phase-aligned
+    steady streams.
     """
     sel_r, sel_i = _stream_phasors(re, im, sps, os)
     b0 = (sel_i <= 0).astype(jnp.int8)

@@ -25,9 +25,9 @@ Method, per (carrier, slot), all batched:
 4. run the slot's symbols through the L-tap×2-phase FIR g, then
    differential-detect and hard-slice as usual.
 
-Complex math is carried on float planes throughout (complex64 is not
-transportable on some TPU paths); the 2Ng×2Ng normal equations use the
-standard real embedding [[Mr, -Mi], [Mi, Mr]].
+Complex math is carried on planar float re/im arrays throughout; the
+2Ng×2Ng normal equations use the standard real embedding
+[[Mr, -Mi], [Mi, Mr]].
 """
 from __future__ import annotations
 
@@ -41,6 +41,12 @@ from tetra_tpu import constants as C
 from tetra_tpu.phy import dqpsk
 
 __all__ = ["demodulate_hard_eq_slotwise_ri"]
+
+
+def _ein(spec, *ops):
+    """Equalizer contractions at HIGHEST precision (signal path)."""
+    return jnp.einsum(spec, *ops, precision=jax.lax.Precision.HIGHEST)
+
 
 L_PILOT = 2           # taps/polyphase for the pilot pass: the normal
                       # training is only 11 symbols, so keep the pilot
@@ -99,14 +105,14 @@ def _ls_solve(Ar, Ai, ur, ui, lam):
     if ur.ndim == 1:
         ur = jnp.broadcast_to(ur, Ar.shape[:-1])
         ui = jnp.broadcast_to(ui, Ar.shape[:-1])
-    Mr = jnp.einsum("...ei,...ej->...ij", Ar, Ar) \
-        + jnp.einsum("...ei,...ej->...ij", Ai, Ai)
-    Mi = jnp.einsum("...ei,...ej->...ij", Ar, Ai) \
-        - jnp.einsum("...ei,...ej->...ij", Ai, Ar)
-    br = jnp.einsum("...ei,...e->...i", Ar, ur) \
-        + jnp.einsum("...ei,...e->...i", Ai, ui)
-    bi = jnp.einsum("...ei,...e->...i", Ar, ui) \
-        - jnp.einsum("...ei,...e->...i", Ai, ur)
+    Mr = _ein("...ei,...ej->...ij", Ar, Ar) \
+        + _ein("...ei,...ej->...ij", Ai, Ai)
+    Mi = _ein("...ei,...ej->...ij", Ar, Ai) \
+        - _ein("...ei,...ej->...ij", Ai, Ar)
+    br = _ein("...ei,...e->...i", Ar, ur) \
+        + _ein("...ei,...e->...i", Ai, ui)
+    bi = _ein("...ei,...e->...i", Ar, ui) \
+        - _ein("...ei,...e->...i", Ai, ur)
     B = jnp.concatenate([
         jnp.concatenate([Mr, -Mi], axis=-1),
         jnp.concatenate([Mi, Mr], axis=-1)], axis=-2)
@@ -114,10 +120,10 @@ def _ls_solve(Ar, Ai, ur, ui, lam):
     rhs = jnp.concatenate([br, bi], axis=-1)[..., None]
     g = jnp.linalg.solve(B, rhs)[..., 0]
     gr, gi = g[..., :Ng], g[..., Ng:]
-    yr = jnp.einsum("...ei,...i->...e", Ar, gr) \
-        - jnp.einsum("...ei,...i->...e", Ai, gi)
-    yi = jnp.einsum("...ei,...i->...e", Ar, gi) \
-        + jnp.einsum("...ei,...i->...e", Ai, gr)
+    yr = _ein("...ei,...i->...e", Ar, gr) \
+        - _ein("...ei,...i->...e", Ai, gi)
+    yi = _ein("...ei,...i->...e", Ar, gi) \
+        + _ein("...ei,...i->...e", Ai, gr)
     res = jnp.mean((yr - ur) ** 2 + (yi - ui) ** 2, axis=-1)
     return gr, gi, res
 

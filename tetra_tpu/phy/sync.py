@@ -6,7 +6,7 @@ bits per call (tetra-rx.c:86), scanning for training sequences with
 tetra_find_train_seq (tetra_burst.c:269-339) and emitting one 510-bit
 timeslot per step once locked.
 
-TPU design: the per-bit correlation scan — the reference's hot loop 2 —
+Design: the per-bit correlation scan — the reference's hot loop 2 —
 runs ONCE for the whole chunk as a batched matched-filter pass on
 device (phy.burst.train_seq_match); `align_stream` then replays the
 reference's buffer/state arithmetic over the precomputed match map in

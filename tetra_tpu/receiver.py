@@ -178,8 +178,8 @@ def run_rtltcp(args):
 
 
 def main(argv=None):
-    from tetra_tpu.utils.platform import apply_env_platform
-    apply_env_platform()
+    from tetra_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     g = p.add_mutually_exclusive_group(required=True)

@@ -186,8 +186,7 @@ class MultiCarrierReceiver:
         filterbank instead (O(T·taps) + one DFT instead of O(C·T)).
         """
         wideband_iq = np.asarray(wideband_iq).astype(np.complex64)
-        # interleaved float32 planes: complex64 never crosses the link
-        # (some TPU transports don't support it — phy/pfb.py)
+        # interleaved float32 planes: the device side is planar re/im
         raw = np.ascontiguousarray(wideband_iq).view(np.float32)
         # the PFB path streams through the hop-aligned overlap-save (a
         # stateless per-chunk call would discard the filter state and

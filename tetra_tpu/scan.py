@@ -162,8 +162,8 @@ def render_spectrum(centers, power_db, floor_db, width: int = 64,
 
 
 def main(argv=None):
-    from tetra_tpu.utils.platform import apply_env_platform
-    apply_env_platform()
+    from tetra_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("capture", nargs="?", help="complex64 cfile")

@@ -4,7 +4,7 @@
  * (/root/reference/src) and runs them on deterministic pseudo-random inputs,
  * dumping (input, output) pairs as JSON to tests/golden/golden.json.
  *
- * This file only CALLS reference code as an oracle; the TPU framework in
+ * This file only CALLS reference code as an oracle; the JAX framework in
  * tetra_tpu/ is an independent implementation validated against these
  * vectors.
  */

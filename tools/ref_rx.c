@@ -14,7 +14,7 @@
  * (sync events, slot alignment, TDMA time, CRC verdicts, type-1 bits)
  * against tetra_tpu.rx.TetraReceiver over the same captures.
  *
- * This file only CALLS reference code as an oracle; the TPU framework in
+ * This file only CALLS reference code as an oracle; the JAX framework in
  * tetra_tpu/ is an independent implementation validated against it.
  */
 #include <stdint.h>

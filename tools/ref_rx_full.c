@@ -16,7 +16,7 @@
  * keeping its tms->tsn side effect, tetra_gsmtap.c:50) and the TUN
  * device (tuntap.c).
  *
- * This file only CALLS reference code as an oracle; the TPU framework
+ * This file only CALLS reference code as an oracle; the JAX framework
  * in tetra_tpu/ is an independent implementation validated against it.
  */
 #include <stdint.h>

@@ -4,7 +4,7 @@
  * viterbi_tch.c fill in, plus osmo_conv_decode.  The decoder itself is
  * implemented in tools/ref_rx.c: a plain max-correlation Viterbi with
  * start state 0, best-end-state selection and ties broken toward the
- * lower predecessor / lower state — the semantics the TPU framework's
+ * lower predecessor / lower state — the semantics the JAX framework's
  * tetra_tpu.ops.viterbi documents and that libosmocore's decoder
  * exhibits on the TETRA tail-terminated blocks. */
 #ifndef STUB_OSMOCOM_CONV_H
